@@ -1,0 +1,104 @@
+// Shared device helpers for the monodetr_torch kernels.
+//
+// Element types: every kernel is instantiated for float (dtype code 0) and
+// __nv_bfloat16 (dtype code 1); arithmetic is always f32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace mdt {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxLevels = 8;
+
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, s));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(kFullMask, x, s);
+  return x;
+}
+
+// Multi-scale value pyramid: level l holds h[l] x w[l] tokens starting at
+// token start[l] of the flattened [S] axis.
+struct Levels {
+  int n;
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int start[kMaxLevels];
+};
+
+inline Levels make_levels(int L, const int* hw) {
+  Levels lv{};
+  lv.n = L;
+  int s = 0;
+  for (int l = 0; l < L; ++l) {
+    lv.h[l] = hw[2 * l];
+    lv.w[l] = hw[2 * l + 1];
+    lv.start[l] = s;
+    s += lv.h[l] * lv.w[l];
+  }
+  return lv;
+}
+
+// Weighted sum of L*P bilinear samples of one head, computed by one warp.
+//
+// Lane j < L*P holds sample j's attention weight `att` and pixel position
+// (fx, fy) in the level-(j / P) grid (align_corners=False pixel centres);
+// the other lanes' values are ignored.  Each sample is broadcast to the
+// warp, and lane d reads channel d of the four corner tokens: one 32-channel
+// coalesced load per corner.  Corners outside the level contribute zero
+// (grid_sample padding_mode='zeros').  `v` points at channel 0 of this
+// head in token 0 of this batch item; `row` is the stride between tokens.
+// Returns lane d's f32 sum.
+template <typename T>
+__device__ __forceinline__ float sample_heads_sum(const T* __restrict__ v, int64_t row,
+                                                  const Levels& lv, int P, float att,
+                                                  float fx, float fy, int lane) {
+  const int LP = lv.n * P;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < LP; ++j) {
+    const float a = __shfl_sync(kFullMask, att, j);
+    const float x = __shfl_sync(kFullMask, fx, j);
+    const float y = __shfl_sync(kFullMask, fy, j);
+    const int l = j / P;
+    const int hl = lv.h[l], wl = lv.w[l];
+    const T* base = v + (int64_t)lv.start[l] * row + lane;
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const float lx = x - x0f, ly = y - y0f;
+    const bool vx0 = x0 >= 0 && x0 < wl, vx1 = x0 + 1 >= 0 && x0 + 1 < wl;
+    const bool vy0 = y0 >= 0 && y0 < hl, vy1 = y0 + 1 >= 0 && y0 + 1 < hl;
+    float s = 0.f;
+    if (vy0 && vx0) s += (1.f - lx) * (1.f - ly) * to_f32(base[((int64_t)y0 * wl + x0) * row]);
+    if (vy0 && vx1) s += lx * (1.f - ly) * to_f32(base[((int64_t)y0 * wl + x0 + 1) * row]);
+    if (vy1 && vx0) s += (1.f - lx) * ly * to_f32(base[((int64_t)(y0 + 1) * wl + x0) * row]);
+    if (vy1 && vx1) s += lx * ly * to_f32(base[((int64_t)(y0 + 1) * wl + x0 + 1) * row]);
+    acc += a * s;
+  }
+  return acc;
+}
+
+}  // namespace mdt

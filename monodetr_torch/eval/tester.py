@@ -1,0 +1,125 @@
+"""Evaluation orchestration (monodetr_tpu/eval/tester.py): the checkpoint
+to evaluate, batched no-grad inference with per-image timing, top-k
+extraction on the device, host decode to KITTI txt files.
+
+Checkpoints are the JAX package's (train/checkpoint.py: a pickle of numpy
+pytrees, `model_state` holding the flax params); they load through
+convert.params_from_jax.  AP evaluation is not ported: see `evaluate`.
+"""
+
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from ..convert import params_from_jax
+from .decode import P2Camera, decode_detections, extract_dets_from_outputs, save_results
+
+
+def load_checkpoint(filename, logger=None):
+    """A JAX-package checkpoint dict; its `model_state` is a flax tree.
+    Unpickles, so open only checkpoints this project wrote."""
+    if not os.path.isfile(filename):
+        raise FileNotFoundError(filename)
+    if logger:
+        logger.info("==> Loading from checkpoint '{}'".format(filename))
+    with open(filename, "rb") as f:
+        return pickle.load(f)
+
+
+class Tester:
+    def __init__(self, cfg, model, dataloader, logger, train_cfg=None,
+                 model_name="monodetr", device="cuda"):
+        """`model` is a monodetr_torch MonoDETR already on `device` in its
+        compute dtype."""
+        self.cfg = cfg
+        self.model = model
+        self.dataloader = dataloader
+        self.logger = logger
+        self.train_cfg = train_cfg or {}
+        self.device = torch.device(device)
+        self.output_dir = os.path.join(
+            "./" + self.train_cfg.get("save_path", "outputs/"), model_name)
+
+    def checkpoint_path(self):
+        """The single-mode checkpoint (tester_helper.py:30-43)."""
+        if self.cfg.get("checkpoint_path"):
+            return self.cfg["checkpoint_path"]
+        if self.train_cfg.get("save_all", False):
+            return os.path.join(self.output_dir, "checkpoint_epoch_{}.pth".format(
+                self.cfg.get("checkpoint", 0)))
+        path = os.path.join(self.output_dir, "checkpoint_best.pth")
+        fallback = os.path.join(self.output_dir, "checkpoint.pth")
+        if not os.path.exists(path) and os.path.exists(fallback):
+            self.logger.info("checkpoint_best.pth missing; using %s" % fallback)
+            return fallback
+        return path
+
+    def load(self, path):
+        state = load_checkpoint(path, self.logger)
+        sd = params_from_jax(state["model_state"])
+        dtype = self.model.query_embed.weight.dtype
+        self.model.load_state_dict({k: v.to(dtype) for k, v in sd.items()})
+
+    def test(self):
+        """Single-checkpoint evaluation: load the checkpoint if one is on
+        disk, else keep the model's weights; write the KITTI txts."""
+        if self.cfg.get("mode", "single") != "single":
+            raise NotImplementedError(
+                "tester mode 'all' is not ported (ROADMAP.md section A)")
+        path = self.checkpoint_path()
+        if os.path.exists(path):
+            self.load(path)
+        else:
+            self.logger.info("no checkpoint on disk (%s); evaluating in-memory "
+                             "weights" % path)
+        return self.inference()
+
+    @torch.no_grad()
+    def predict(self, images, calibs, img_sizes):
+        """numpy batch -> [B, topk, 37] numpy detections."""
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        out = self.model(dev(images), dev(calibs), dev(img_sizes))
+        dets = extract_dets_from_outputs(out, topk=self.cfg.get("topk", 50))
+        return dets.cpu().numpy()
+
+    def inference(self):
+        self.model.eval()
+        results = {}
+        model_times = []
+        for batch, infos in self.dataloader:
+            t0 = time.time()
+            dets = self.predict(batch["images"], batch["calibs"], batch["img_sizes"])
+            model_times.append((time.time() - t0) / len(infos))
+
+            n_valid = len(infos)
+            info = {"img_id": [i["img_id"] for i in infos],
+                    "img_size": [i["img_size"] for i in infos]}
+            calibs = [P2Camera(batch["calibs"][i]) for i in range(n_valid)]
+            results.update(decode_detections(
+                dets[:n_valid], info, calibs, self.dataloader.dataset.cls_mean_size,
+                self.cfg.get("threshold", 0.2)))
+
+        if model_times:
+            self.ms_per_img = 1000 * float(np.mean(model_times[1:] or model_times))
+            self.logger.info("inference on %d images, %.1f ms/img (model)"
+                             % (len(results), self.ms_per_img))
+        self.save_results(results)
+        return results
+
+    @property
+    def results_dir(self):
+        return os.path.join(self.output_dir, "outputs", "data")
+
+    def save_results(self, results):
+        save_results(results, self.results_dir)
+
+    def evaluate(self):
+        raise NotImplementedError(
+            "KITTI AP evaluation is not ported: the KITTI evaluator is reached "
+            "through monodetr_tpu.eval, whose __init__ imports jax; see "
+            "ROADMAP.md section A")

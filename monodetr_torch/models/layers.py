@@ -1,0 +1,77 @@
+"""Shared building blocks (monodetr_tpu/models/layers.py): the ReLU MLP
+head, torch-compatible multi-head attention over [B, T, C], conv + GroupNorm
+and the post-norm FFN."""
+
+from torch import nn
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import attention_plain, fused_attention
+
+# attention with more logits than this per (batch, head) runs in the fused
+# kernel (layers.py:98-100): at eval only the depth encoder's 1920 x 1920
+FUSED_ATTENTION_MIN_LOGITS = 1_000_000
+
+
+class MLP(nn.Module):
+    """ReLU MLP head (reference monodetr.py:535-547)."""
+
+    def __init__(self, input_dim, hidden_dim, output_dim, num_layers):
+        super().__init__()
+        dims = [input_dim] + [hidden_dim] * (num_layers - 1)
+        outs = [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(nn.Linear(i, o) for i, o in zip(dims, outs))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+class MultiheadAttention(nn.Module):
+    """softmax(Q K^T / sqrt(d_head)) V with nn.MultiheadAttention's packed
+    in-projection parameters; no masks (every caller's mask is all-valid).
+
+    `plain_ops` selects the plain PyTorch attention over the fused kernel
+    for a CUDA tensor, for comparing the two."""
+
+    def __init__(self, d_model, num_heads):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+        self.plain_ops = False
+
+    def forward(self, q, k, v):
+        B, Tq, C = q.shape
+        Tk = k.shape[1]
+        w_q, w_k, w_v = self.in_proj_weight.chunk(3)
+        b_q, b_k, b_v = self.in_proj_bias.chunk(3)
+
+        def heads(x, w, b, T):
+            return F.linear(x, w, b).view(B, T, self.num_heads, -1).transpose(1, 2).contiguous()
+
+        qh, kh, vh = heads(q, w_q, b_q, Tq), heads(k, w_k, b_k, Tk), heads(v, w_v, b_v, Tk)
+        scale = qh.shape[-1] ** -0.5
+        if Tq * Tk > FUSED_ATTENTION_MIN_LOGITS and not self.plain_ops:
+            out = fused_attention(qh, kh, vh, 0, scale, 0.0)
+        else:
+            out = attention_plain(qh, kh, vh, scale)
+        return self.out_proj(out.transpose(1, 2).reshape(B, Tq, C))
+
+
+def conv_gn(cin, cout, kernel=1, stride=1, groups=32):
+    """Conv2d + GroupNorm(32), the reference's projection block
+    (monodetr.py:83-91); as nn.Sequential so the names are `.0` / `.1`."""
+    return nn.Sequential(
+        nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2),
+        nn.GroupNorm(groups, cout, eps=1e-5))
+
+
+def ffn(x, linear1, linear2, norm):
+    """Post-norm FFN block at eval: norm(x + linear2(relu(linear1(x))))
+    (depthaware_transformer.py:339-343)."""
+    return norm(x + linear2(F.relu(linear1(x))))

@@ -1,0 +1,102 @@
+"""Encoder deformable attention over grid queries, with the attention
+prologue (per-head softmax, window clamp, static centres) inside the kernel.
+
+Counterpart of monodetr_tpu/ops/msda_enc_pallas.py:ms_deform_attn_enc_fused,
+same signature and offset feature order.  The CUDA kernel is
+csrc/msda.cu:msda_enc_fused_kernel; `ms_deform_attn_enc_fused_plain` is its
+plain PyTorch version (softmax -> clip to +-lim -> exact MSDA at centre +
+offset, the composition of tests/test_msda_enc_fused.py:oracle).
+"""
+
+import numpy as np
+import torch
+
+from .. import _build
+from .msda import ms_deform_attn_px
+from .utils import device_constant
+
+
+def window_limit(window):
+    """Largest sampling offset, in sampled-level pixels, of the G-window."""
+    return window / 2 - 1 - 1e-2
+
+
+def offset_feature_perm(n_heads=8, n_levels=4, n_points=4):
+    """Permutation taking the sampling_offsets projection's reference
+    feature order (h, lv, p, xy) to [x-block | y-block], each block in
+    (h, lv, p) order (msda_enc_pallas.py:55)."""
+    flat = np.arange(n_heads * n_levels * n_points * 2).reshape(-1, 2)
+    return np.concatenate([flat[:, 0], flat[:, 1]])
+
+
+def grid_centers(spatial_shapes):
+    """[S, L, 2] (x, y): where grid query q's centre falls in each level's
+    pixel coordinates, (g + 0.5) * size_l / size_lq - 0.5."""
+    per_level = []
+    for hq, wq in spatial_shapes:
+        ys, xs = np.meshgrid(np.arange(hq) + 0.5, np.arange(wq) + 0.5,
+                             indexing="ij")
+        per_level.append(np.stack(
+            [np.stack([xs * wv / wq - 0.5, ys * hv / hq - 0.5], -1).reshape(-1, 2)
+             for hv, wv in spatial_shapes], 1))
+    return np.concatenate(per_level, 0).astype(np.float32)
+
+
+def _split(value, spatial_shapes, off, logits):
+    B, S, H, D = value.shape
+    L = len(spatial_shapes)
+    LP = logits.shape[-1] // H
+    if (logits.shape != (B, S, H * LP) or off.shape != (B, S, 2 * H * LP)
+            or LP % L or S != sum(h * w for h, w in spatial_shapes)):
+        raise ValueError(
+            f"ms_deform_attn_enc_fused: value {tuple(value.shape)}, off "
+            f"{tuple(off.shape)}, logits {tuple(logits.shape)} do not agree "
+            f"with levels {spatial_shapes}")
+    return B, S, H, D, L, LP // L
+
+
+def ms_deform_attn_enc_fused_plain(value, spatial_shapes, off, logits,
+                                   window=8):
+    B, S, H, D, L, P = _split(value, spatial_shapes, off, logits)
+    att = torch.softmax(logits.float().view(B, S, H, L * P), -1)
+    lim = window_limit(window)
+    offc = off.float().clamp(-lim, lim)
+    ox = offc[..., :H * L * P].reshape(B, S, H, L, P)
+    oy = offc[..., H * L * P:].reshape(B, S, H, L, P)
+    c = device_constant(grid_centers, (tuple(spatial_shapes),), value.device)
+    fx = c[None, :, None, :, None, 0] + ox
+    fy = c[None, :, None, :, None, 1] + oy
+    return ms_deform_attn_px(value, spatial_shapes, fx, fy,
+                             att.view(B, S, H, L, P))
+
+
+def ms_deform_attn_enc_fused(value, spatial_shapes, off, logits, window=8):
+    """Windowed MSDA for grid queries (Q == S, level-major).
+
+    value:  [B, S, H, D] projected value tokens
+    off:    [B, S, 2*H*L*P] raw sampling-offset projection, feature order
+            [x(h, lv, p) | y(h, lv, p)], in sampled-level pixels
+    logits: [B, S, H*L*P] raw attention logits, order (h, lv*P + p)
+    Returns [B, S, H*D] in value.dtype: per head, softmax over the L*P
+    logits, then bilinear samples (zero padding) at centre +
+    clip(offset, +-(G/2 - 1 - 0.01)) in every level.
+    """
+    if value.device.type == "cpu":
+        return ms_deform_attn_enc_fused_plain(value, spatial_shapes, off,
+                                              logits, window)
+    name = "ms_deform_attn_enc_fused"
+    _build.require_cuda(name, value, off, logits)
+    if not value.dtype == off.dtype == logits.dtype:
+        raise TypeError(f"{name}: value, off and logits must share a dtype")
+    B, S, H, D, L, P = _split(value, spatial_shapes, off, logits)
+    out = torch.empty(B, S, H * D, dtype=value.dtype, device=value.device)
+    _build.launch(
+        "mdt_msda_enc_fused", value.data_ptr(), off.data_ptr(),
+        logits.data_ptr(), out.data_ptr(), _build.dtype_code(value.dtype),
+        B, S, H, D, L, P, _build.levels_arg(spatial_shapes),
+        window_limit(window), _build.stream_of(value))
+    ms_deform_attn_enc_fused.launches += 1
+    return out
+
+
+ms_deform_attn_enc_fused.launches = 0

@@ -1,0 +1,187 @@
+"""monodetr_torch eval path and guards: decode against the JAX package,
+the checkpoint conversion round trip, the smoke's model dict, the CLI on
+the synthetic KITTI fixture (no jax imported), and chip_smoke.py refusing
+to run without a CUDA card."""
+
+import os
+import pickle
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import jax.numpy as jnp
+
+sys.path.insert(0, "tools")
+from convert_checkpoint import convert_state_dict  # noqa: E402
+
+from monodetr_tpu.data.kitti_utils import Calibration  # noqa: E402
+from monodetr_tpu.eval import decode as jax_decode  # noqa: E402
+from monodetr_torch.config import MONODETR_MODEL  # noqa: E402
+from monodetr_torch.convert import params_from_jax  # noqa: E402
+from monodetr_torch.eval import decode  # noqa: E402
+from monodetr_torch.eval import tester as torch_tester  # noqa: E402
+from monodetr_torch.models.monodetr import build_monodetr  # noqa: E402
+from tests.synthetic_kitti import make_synthetic_kitti  # noqa: E402
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(enc_layers=1, dec_layers=1, dtype="fp32")
+
+
+def outputs(seed, B=2, Q=50):
+    rng = np.random.RandomState(seed)
+    return {
+        "pred_logits": rng.randn(B, Q, 3).astype(np.float32) * 2,
+        "pred_boxes": rng.rand(B, Q, 6).astype(np.float32) * 0.5 + 0.1,
+        "pred_angle": rng.randn(B, Q, 24).astype(np.float32),
+        "pred_3d_dim": rng.randn(B, Q, 3).astype(np.float32) * 0.3,
+        "pred_depth": np.stack([rng.rand(B, Q) * 50 + 2, rng.randn(B, Q)], -1).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("topk", [50, 20])
+def test_extract_dets_matches_jax(topk):
+    out = outputs(topk)
+    got = decode.extract_dets_from_outputs({k: torch.from_numpy(v) for k, v in out.items()}, topk)
+    want = jax_decode.extract_dets_from_outputs({k: jnp.asarray(v) for k, v in out.items()}, topk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_host_decode_and_txt_match_jax(tmp_path):
+    dets = np.asarray(jax_decode.extract_dets_from_outputs(
+        {k: jnp.asarray(v) for k, v in outputs(3).items()}, 50))
+    p2 = np.array([[721.5, 0, 609.6, 44.9], [0, 721.5, 172.9, 0.2], [0, 0, 1, 0.003]],
+                  np.float32)
+    info = {"img_id": [7, 9], "img_size": [np.array([1242.0, 375.0])] * 2}
+    mean_size = np.random.RandomState(4).rand(3, 3)
+    got = decode.decode_detections(dets, info, [decode.P2Camera(p2)] * 2, mean_size, 0.1)
+    want = jax_decode.decode_detections(dets, info, [Calibration.from_p2(p2)] * 2,
+                                        mean_size, 0.1)
+    assert got.keys() == want.keys() and sum(map(len, got.values())) > 0
+    for k in got:
+        np.testing.assert_allclose(np.asarray(got[k], np.float64),
+                                   np.asarray(want[k], np.float64), rtol=1e-6, atol=1e-6)
+    decode.save_results(got, str(tmp_path / "port"))
+    jax_decode.save_results(want, str(tmp_path / "jax"))
+    for name in os.listdir(tmp_path / "jax"):
+        assert (tmp_path / "port" / name).read_text() == (tmp_path / "jax" / name).read_text()
+
+
+def test_smoke_model_dict_is_the_shipped_config():
+    with open(os.path.join(REPO, "configs", "monodetr.yaml")) as f:
+        assert yaml.safe_load(f)["model"] == MONODETR_MODEL
+
+
+def test_params_from_jax_round_trips_through_convert_state_dict():
+    sd = {k: v.numpy() for k, v in build_monodetr(dict(TINY, dec_layers=2), seed=3)
+          .state_dict().items()}
+    rng = np.random.RandomState(5)
+    for k in sd:
+        if k.endswith("running_var"):
+            sd[k] = (rng.rand(*sd[k].shape) + 0.5).astype(np.float32)
+    tree = convert_state_dict(sd, enc_layers=1, dec_layers=2)
+    back = convert_state_dict({k: v.numpy() for k, v in params_from_jax(tree).items()},
+                              enc_layers=1, dec_layers=2)
+
+    def leaves(t, p=""):
+        for k, v in t.items():
+            yield from (leaves(v, p + k + "/") if isinstance(v, dict) else [(p + k, v)])
+
+    a, b = dict(leaves(tree)), dict(leaves(back))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(b[k], a[k], rtol=1e-6, atol=1e-7, err_msg=k)
+    with pytest.raises(KeyError):
+        params_from_jax({"params": dict(tree["params"], tgt_embed=np.zeros(3))})
+
+
+def test_tester_loads_a_jax_checkpoint(tmp_path):
+    """Tester.test() loads <save_path>/<model>/checkpoint_best.pth (a JAX
+    checkpoint) through params_from_jax and writes one txt per image."""
+    src = build_monodetr(TINY, seed=1)
+    tree = convert_state_dict({k: v.numpy() for k, v in src.state_dict().items()},
+                              enc_layers=1, dec_layers=1)
+    run_dir = tmp_path / "outputs" / "m"
+    run_dir.mkdir(parents=True)
+    with open(run_dir / "checkpoint_best.pth", "wb") as f:
+        pickle.dump({"epoch": 1, "model_state": tree}, f)
+
+    class Loader:
+        dataset = type("D", (), {"cls_mean_size": np.zeros((3, 3))})
+
+        def __iter__(self):
+            rng = np.random.RandomState(0)
+            yield ({"images": rng.randn(2, 128, 256, 3).astype(np.float32),
+                    "calibs": np.tile(np.eye(3, 4, dtype=np.float32) * 700, (2, 1, 1)),
+                    "img_sizes": np.tile(np.float32([[1242, 375]]), (2, 1))},
+                   [{"img_id": i, "img_size": np.float32([1242, 375])} for i in range(2)])
+
+    import logging
+
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        model = build_monodetr(TINY, seed=2)
+        tester = torch_tester.Tester({"threshold": 0.0}, model, Loader(),
+                                     logging.getLogger("t"), {"save_path": "outputs/"}, "m",
+                                     device="cpu")
+        results = tester.test()
+        assert sorted(os.listdir(tester.results_dir)) == ["000000.txt", "000001.txt"]
+        with pytest.raises(NotImplementedError, match="jax"):
+            tester.evaluate()
+    finally:
+        os.chdir(cwd)
+    for k, v in src.state_dict().items():
+        if "running" not in k and ".bn" not in k and "downsample.1" not in k:
+            torch.testing.assert_close(model.state_dict()[k], v)
+    assert all(len(r) == 50 for r in results.values())
+
+
+def _run(args, cwd, env=None):
+    return subprocess.run([sys.executable] + args, cwd=cwd, capture_output=True, text=True,
+                          timeout=600, env=env)
+
+
+def test_cli_evaluate_only_writes_kitti_txts_without_jax(tmp_path):
+    make_synthetic_kitti(str(tmp_path / "kitti"), n_train=1, n_val=2, seed=7)
+    with open(os.path.join(REPO, "configs", "monodetr.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"].update(root_dir=str(tmp_path / "kitti"), batch_size=2, resolution=[320, 128])
+    cfg["model"].update(TINY)
+    cfg["model_name"] = "smoke"
+    cfg["tester"]["threshold"] = 0.0
+    with open(tmp_path / "tiny.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    tool = os.path.join(REPO, "tools", "train_val_torch.py")
+    code = ("import runpy, sys; sys.argv = [%r, '--config', 'tiny.yaml', '-e']; "
+            "runpy.run_path(%r, run_name='__main__'); "
+            "print('jax imported:', 'jax' in sys.modules)" % (tool, tool))
+    proc = _run(["-c", code], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "jax imported: False" in proc.stdout
+    txts = os.listdir(tmp_path / "outputs" / "smoke" / "outputs" / "data")
+    assert len(txts) == 2  # one per val image
+    rows = (tmp_path / "outputs" / "smoke" / "outputs" / "data" / txts[0]).read_text()
+    assert len(rows.splitlines()) == 50 and all(len(r.split()) == 16 for r in rows.splitlines())
+
+    proc = _run([tool, "--config", "tiny.yaml"], tmp_path)  # training: not ported
+    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, where):
+    """No CUDA device (this host, or CUDA_VISIBLE_DEVICES empty), or no repo
+    beside the script: non-zero exit and no ok line."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = str(tmp_path / "chip_smoke.py")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = _run([script], tmp_path, env)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
