@@ -2,21 +2,31 @@
 
     python3 chip_smoke.py
 
-Phases, one line each, and any failure exits non-zero:
+Phases, one line each (or a few), and any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit;
      exits 1 when no CUDA device is present;
   2. build the CUDA kernels from monodetr_torch/csrc;
-  3. each kernel against its plain PyTorch version on the card at the
-     slice's shapes, in f32 (TF32 off) and bf16: max |error| against a
-     stated tolerance, and the kernel's and the plain version's times;
-  4. the slice: MonoDETR at the full width of configs/monodetr.yaml, seeded
-     random weights, `Tester.inference` over 3 batches of 16 synthetic
-     384x1280 images in bf16 with the launch counters checked, then the f32
-     forward at B=2 against the same model run through the plain versions.
+  3. each forward kernel against its plain PyTorch version on the card at
+     the slices' shapes, in f32 (TF32 off) and bf16, with both times;
+  4. each training kernel against its plain version: the two MSDA
+     backwards and the attention forward and backward with dropout
+     (gradients against autograd through the plain versions, f32 at B=2
+     and bf16 at B=16), the dropout's properties, and the LAP kernel
+     bit-identical to its plain version on 528 matching problems;
+  5. the eval slice: MonoDETR at the full width of configs/monodetr.yaml,
+     seeded random weights, `Tester.inference` over 2 batches of 16
+     synthetic 384x1280 images in bf16, launch counters checked; then the
+     f32 forward at B=2 against the same model through the plain versions;
+  6. the training slice: the same model with f32 parameters, bf16 compute
+     and dropout 0.1, 6 train steps at batch 16 on synthetic images and
+     targets, launch counters checked per step, ms/step and img/s; then
+     one f32 step at B=2 without dropout through the kernels against the
+     same step through the plain versions (matches, losses, gradients).
 The second-to-last line is the kernel report (JSON); the last line is
 {"ok": true, "device": {...}}.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -30,35 +40,52 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from monodetr_torch import _build  # noqa: E402
-from monodetr_torch.ops.attention import attention_plain, fused_attention  # noqa: E402
+from monodetr_torch.ops.attention import (  # noqa: E402
+    attention_keep_mask, attention_plain, fused_attention, fused_attention_bwd)
+from monodetr_torch.ops.lap import lap_solve, lap_solve_plain  # noqa: E402
 from monodetr_torch.ops.msda import ms_deform_attn  # noqa: E402
 from monodetr_torch.ops.msda_enc import (  # noqa: E402
-    ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_plain, window_limit)
-from monodetr_torch.ops.msda_sep import ms_deform_attn_sep  # noqa: E402
+    ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd, ms_deform_attn_enc_fused_plain,
+    window_limit)
+from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd  # noqa: E402
+from monodetr_torch.train.synthetic import SyntheticLoader  # noqa: E402
 
 LEVELS = ((48, 160), (24, 80), (12, 40), (6, 20))  # 384x1280 / 8, 16, 32, 64
 S = sum(h * w for h, w in LEVELS)
 H, D, L, P, G = 8, 32, 4, 4, 6
 DEPTH_TOKENS = 24 * 80
+TRAIN_QUERIES = 550
 # max |kernel - plain| allowed.  f32: both sum in f32 in another order, and
 # the plain MSDA re-normalises pixel positions for grid_sample (~1e-5 px at
 # widths up to 160); bf16: the output is rounded to bf16 (2^-8 relative)
 # at values of order 1.
 TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# gradients, max |a - b| / (1 + max |b|): f32 sums by atomics in another
+# order; bf16 rounds every input and output to 2^-8 relative
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 KERNELS = {
     "msda_enc_fused": dict(
-        fn=ms_deform_attn_enc_fused, route="cuda",
-        source="monodetr_torch/csrc/msda.cu",
+        fn=ms_deform_attn_enc_fused, route="cuda", source="monodetr_torch/csrc/msda.cu",
         replaces="monodetr_tpu/ops/msda_enc_pallas.py:653"),
+    "msda_enc_fused_bwd": dict(
+        fn=ms_deform_attn_enc_fused_bwd, route="cuda", source="monodetr_torch/csrc/msda.cu",
+        replaces="monodetr_tpu/ops/msda_enc_pallas.py:597"),
     "msda_sep": dict(
-        fn=ms_deform_attn_sep, route="cuda",
-        source="monodetr_torch/csrc/msda.cu",
+        fn=ms_deform_attn_sep, route="cuda", source="monodetr_torch/csrc/msda.cu",
         replaces="monodetr_tpu/ops/msda_sep_pallas.py:337"),
+    "msda_sep_bwd": dict(
+        fn=ms_deform_attn_sep_bwd, route="cuda", source="monodetr_torch/csrc/msda.cu",
+        replaces="monodetr_tpu/ops/msda_sep_pallas.py:290"),
     "attention_fwd": dict(
-        fn=fused_attention, route="cuda",
-        source="monodetr_torch/csrc/attention.cu",
+        fn=fused_attention, route="cuda", source="monodetr_torch/csrc/attention.cu",
         replaces="monodetr_tpu/ops/attention_pallas.py:162"),
+    "attention_bwd": dict(
+        fn=fused_attention_bwd, route="cuda", source="monodetr_torch/csrc/attention.cu",
+        replaces="monodetr_tpu/ops/attention_pallas.py:222"),
+    "lap": dict(
+        fn=lap_solve, route="cuda", source="monodetr_torch/csrc/lap.cu",
+        replaces="monodetr_tpu/ops/lap_pallas.py:148"),
 }
 
 
@@ -78,6 +105,15 @@ def cuda_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def reset_launches():
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+
+
+def read_launches():
+    return {name: spec["fn"].launches for name, spec in KERNELS.items()}
 
 
 def phase_environment():
@@ -100,33 +136,42 @@ def phase_build():
     log(f"build: {lib.relative_to(REPO)} in {time.time() - t0:.1f} s")
 
 
-def kernel_inputs(name, B, dtype, gen):
-    """Inputs at the slice's shapes, made on the card from a generator."""
-    dev = "cuda"
+def randn(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale
 
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * scale)
 
+def enc_offsets(gen, B):
+    """Offsets at odd multiples of 1/32 px, some beyond the window: with the
+    grid centres at multiples of 1/16 px, no sample sits within 0.01 px of
+    an integer position, where the plain version's re-normalised position
+    may land on the other side of the one-sided bilinear derivative."""
+    lim = window_limit(G)
+    off = (torch.rand(B, S, 2 * H * L * P, generator=gen, device="cuda") * 2 - 1) * (lim + 1)
+    return (torch.floor(off * 16) * 2 + 1) / 32
+
+
+def sep_locations(gen, B, Q):
+    """Normalised locations whose pixel positions are >= 0.1 px from any
+    integer (see enc_offsets), some outside the level."""
+    wh = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32, device="cuda")
+    u = torch.rand(B, Q, H, L, P, 2, generator=gen, device="cuda")
+    px = torch.floor(u * (wh[:, None] + 2) - 2) + 0.5 + (u * 997 % 1 - 0.5) * 0.8
+    return (px + 0.5) / wh[:, None]
+
+
+def forward_inputs(name, B, dtype, gen):
+    """Inputs at the slices' shapes, made on the card from a generator."""
     if name == "msda_enc_fused":
-        lim = window_limit(G)
-        value = randn(B, S, H, D).to(dtype)
-        off = ((torch.rand(B, S, 2 * H * L * P, generator=gen, device=dev) * 2 - 1)
-               * (lim + 1.0)).to(dtype)  # some beyond the window: clamped
-        logits = randn(B, S, H * L * P, scale=2.0).to(dtype)
-        return (value, LEVELS, off, logits, G)
+        return (randn(gen, B, S, H, D).to(dtype), LEVELS, enc_offsets(gen, B).to(dtype),
+                randn(gen, B, S, H * L * P, scale=2.0).to(dtype), G)
     if name == "msda_sep":
-        Q = 50
-        value = randn(B, S, H, D).to(dtype)
-        loc = torch.rand(B, Q, H, L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
-        att = torch.softmax(randn(B, Q, H, L * P), -1).view(B, Q, H, L, P)
-        return (value, LEVELS, loc, att)
-    q = randn(B, H, DEPTH_TOKENS, D).to(dtype)
-    k = randn(B, H, DEPTH_TOKENS, D).to(dtype)
-    v = randn(B, H, DEPTH_TOKENS, D).to(dtype)
+        att = torch.softmax(randn(gen, B, 50, H, L * P), -1).view(B, 50, H, L, P)
+        return (randn(gen, B, S, H, D).to(dtype), LEVELS, sep_locations(gen, B, 50), att)
+    q, k, v = (randn(gen, B, H, DEPTH_TOKENS, D).to(dtype) for _ in range(3))
     return (q, k, v, 0, D ** -0.5, 0.0)
 
 
-def plain_of(name):
+def forward_plain(name):
     return {
         "msda_enc_fused": ms_deform_attn_enc_fused_plain,
         "msda_sep": ms_deform_attn,
@@ -134,19 +179,18 @@ def plain_of(name):
     }[name]
 
 
-def phase_kernels():
-    """Each kernel against its plain version in f32 and bf16 at B=2 and in
-    bf16 at the slice's batch of 16, where both are also timed."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def phase_forward_kernels():
+    """Each forward kernel against its plain version in f32 and bf16 at B=2
+    and in bf16 at the batch of 16, where both are also timed."""
     report = {}
-    for name, spec in KERNELS.items():
+    for name in ("msda_enc_fused", "msda_sep", "attention_fwd"):
+        fn = KERNELS[name]["fn"]
         gen = torch.Generator(device="cuda").manual_seed(0)
         errs = []
         for dtype, B in ((torch.float32, 2), (torch.bfloat16, 2), (torch.bfloat16, 16)):
-            args = kernel_inputs(name, B, dtype, gen)
-            got = spec["fn"](*args)
-            want = plain_of(name)(*args)
+            args = forward_inputs(name, B, dtype, gen)
+            got = fn(*args)
+            want = forward_plain(name)(*args)
             torch.cuda.synchronize()
             if got.shape != want.shape or got.dtype != want.dtype:
                 raise RuntimeError(f"{name}: {got.shape}/{got.dtype} vs "
@@ -159,45 +203,188 @@ def phase_kernels():
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"{name} {tag} disagrees with its plain version")
-        ms = cuda_ms(lambda: spec["fn"](*args))
-        plain_ms = cuda_ms(lambda: plain_of(name)(*args))
+        ms = cuda_ms(lambda: fn(*args))
+        plain_ms = cuda_ms(lambda: forward_plain(name)(*args))
         log(f"kernel {name} {tag}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
         report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
     return report
 
 
-class SyntheticLoader:
-    """`n_batches` batches of `batch` normalised 384x1280 images from a
-    seed, each with a KITTI P2 whose focal length and principal point vary
-    a little, in the loader's (batch, infos) format."""
-
-    def __init__(self, n_batches, batch, seed):
-        self.n_batches, self.batch, self.seed = n_batches, batch, seed
-        # meanshape: False in the shipped config -> zero mean sizes
-        self.dataset = type("Dataset", (), {"cls_mean_size": np.zeros((3, 3), np.float32)})
-
-    def __iter__(self):
-        rng = np.random.default_rng(self.seed)
-        p2 = np.array([[721.5377, 0.0, 609.5593, 44.85728],
-                       [0.0, 721.5377, 172.854, 0.2163791],
-                       [0.0, 0.0, 1.0, 0.002745884]], np.float32)
-        for b in range(self.n_batches):
-            n = self.batch
-            calibs = np.repeat(p2[None], n, 0)
-            calibs[:, 0, 0] = calibs[:, 1, 1] = 700 + 40 * rng.random(n, np.float32)
-            calibs[:, :2, 2] += rng.normal(0, 5, (n, 2)).astype(np.float32)
-            images = rng.standard_normal((n, 384, 1280, 3), np.float32)
-            sizes = np.tile(np.array([[1242.0, 375.0]], np.float32), (n, 1))
-            infos = [{"img_id": b * n + i, "img_size": sizes[i]} for i in range(n)]
-            yield {"images": images, "calibs": calibs, "img_sizes": sizes}, infos
+def check_grads(name, tag, dtype, got, want):
+    """Largest absolute and relative gradient errors; raises past GRAD_TOL."""
+    torch.cuda.synchronize()
+    abs_err = rel = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise RuntimeError(f"{name} {tag}: gradient {tuple(a.shape)} not finite "
+                               f"or not {tuple(b.shape)}")
+        e = (a.float() - b.float()).abs().max().item()
+        abs_err = max(abs_err, e)
+        rel = max(rel, e / (1 + b.float().abs().max().item()))
+    ok = rel <= GRAD_TOL[dtype]
+    log(f"kernel {name} {tag}: gradients max|a-b|/(1+max|b|) {rel:.3e} "
+        f"(tol {GRAD_TOL[dtype]:.0e}), max_abs_err {abs_err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name} {tag}: gradients disagree with the plain version")
+    return abs_err
 
 
-def reset_launches():
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+def backward_case(name, B, dtype, gen):
+    """(kernel backward as a function of gout, plain forward as a function
+    of the differentiable inputs, those inputs, gout) at the training
+    shapes; the attention case runs with dropout 0.1 and the kernels'
+    keep mask given to the plain version."""
+    if name == "msda_enc_fused_bwd":
+        value = randn(gen, B, S, H, D).to(dtype)
+        off = enc_offsets(gen, B).to(dtype)
+        logits = randn(gen, B, S, H * L * P, scale=2.0).to(dtype)
+        gout = randn(gen, B, S, H * D).to(dtype)
+        return (lambda g: ms_deform_attn_enc_fused_bwd(value, LEVELS, off, logits, g, G),
+                lambda v, o, lg: ms_deform_attn_enc_fused_plain(v, LEVELS, o, lg, G),
+                (value, off, logits), gout)
+    if name == "msda_sep_bwd":
+        value = randn(gen, B, S, H, D).to(dtype)
+        loc = sep_locations(gen, B, TRAIN_QUERIES)
+        att = torch.softmax(randn(gen, B, TRAIN_QUERIES, H, L * P), -1)
+        att = att.view(B, TRAIN_QUERIES, H, L, P)
+        gout = randn(gen, B, TRAIN_QUERIES, H * D).to(dtype)
+        return (lambda g: ms_deform_attn_sep_bwd(value, LEVELS, loc, att, g),
+                lambda v, lc, a: ms_deform_attn(v, LEVELS, lc, a), (value, loc, att), gout)
+    q = randn(gen, B, H, TRAIN_QUERIES, D).to(dtype)
+    k, v = (randn(gen, B, H, DEPTH_TOKENS, D).to(dtype) for _ in range(2))
+    gout = randn(gen, B, H, TRAIN_QUERIES, D).to(dtype)
+    p, seed = 0.1, torch.tensor(17, device="cuda")
+    keep = attention_keep_mask(tuple(q.shape[:3]) + (DEPTH_TOKENS,), seed, p, "cuda")
+    with torch.no_grad():
+        out = fused_attention(q, k, v, seed, D ** -0.5, p)
+    want = attention_plain(q, k, v, D ** -0.5, keep, p)
+    fwd_err = (out.float() - want.float()).abs().max().item()
+    log(f"kernel attention_fwd dropout 0.1 with the kernels' mask "
+        f"{str(dtype).replace('torch.', '')} B={B} 550x1920: max_abs_err {fwd_err:.3e} "
+        f"(tol {TOL[dtype]:.0e}) {'ok' if fwd_err <= TOL[dtype] else 'FAIL'}")
+    if not fwd_err <= TOL[dtype]:
+        raise RuntimeError("attention_fwd with dropout disagrees with its plain version")
+    # the forward's lse, as the autograd function keeps it
+    lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5, -1)
+    return (lambda g: fused_attention_bwd(q, k, v, out, lse, g, seed, D ** -0.5, p),
+            lambda q_, k_, v_: attention_plain(q_, k_, v_, D ** -0.5, keep, p), (q, k, v), gout)
 
 
-def phase_slice():
+def phase_backward_kernels():
+    """The backward kernels (attention with dropout) against autograd
+    through the plain versions, f32 at B=2 and bf16 at 16; times at 16."""
+    report = {}
+    for name in ("msda_enc_fused_bwd", "msda_sep_bwd", "attention_bwd"):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        errs = []
+        for dtype, B in ((torch.float32, 2), (torch.bfloat16, 16)):
+            kernel, plain, inputs, gout = backward_case(name, B, dtype, gen)
+            got = kernel(gout)
+            xs = [x.detach().requires_grad_(True) for x in inputs]
+            out = plain(*xs)
+            want = torch.autograd.grad(out, xs, gout, retain_graph=True)
+            errs.append(check_grads(name, f"{str(dtype).replace('torch.', '')} B={B}", dtype,
+                                    got, want))
+        ms = cuda_ms(lambda: kernel(gout), iters=10)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, gout, retain_graph=True),
+                           iters=10)
+        log(f"kernel {name} bf16 B=16: {ms:.3f} ms, plain (autograd backward) {plain_ms:.3f} ms")
+        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        del kernel, plain, inputs, gout, got, xs, out, want
+    return report
+
+
+def phase_dropout():
+    """The attention dropout's properties on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    scale = D ** -0.5
+    q = randn(gen, 2, H, 256, D)
+    k, v = randn(gen, 2, H, 384, D), randn(gen, 2, H, 384, D)
+    a = fused_attention(q, k, v, 7, scale, 0.1)
+    same = torch.equal(a, fused_attention(q, k, v, 7, scale, 0.1))
+    differs = not torch.equal(a, fused_attention(q, k, v, 8, scale, 0.1))
+    kept = attention_keep_mask((16, H, TRAIN_QUERIES, DEPTH_TOKENS), 5, 0.1, "cuda")
+    kept = kept.float().mean().item()
+    mean = sum(fused_attention(q, k, v, s, scale, 0.5) for s in range(40)) / 40
+    d0 = fused_attention(q, k, v, 0, scale, 0.0)
+    bias = ((mean - d0).abs().mean() / d0.abs().mean()).item()
+    # out is linear in v: <g, out(v=d)> == <dL/dv, d> iff the backward
+    # regenerates the forward's mask
+    g, d = randn(gen, *q.shape), randn(gen, *v.shape)
+    vv = v.clone().requires_grad_(True)
+    (fused_attention(q, k, vv, 7, scale, 0.1) * g).sum().backward()
+    lhs = (fused_attention(q, k, d, 7, scale, 0.1) * g).sum().item()
+    rhs = (vv.grad * d).sum().item()
+    lin = abs(lhs - rhs) / abs(rhs)
+    # a central finite difference along a random direction of q, in f32
+    qq = q.clone().requires_grad_(True)
+    (fused_attention(qq, k, v, 7, scale, 0.1) * g).sum().backward()
+    dq = randn(gen, *q.shape)
+    eps = 1e-2
+    fd = ((fused_attention(q + eps * dq, k, v, 7, scale, 0.1) * g).sum().item()
+          - (fused_attention(q - eps * dq, k, v, 7, scale, 0.1) * g).sum().item()) / (2 * eps)
+    an = (qq.grad * dq).sum().item()
+    fd_err = abs(fd - an) / abs(an)
+    ok = (same and differs and abs(kept - 0.9) < 0.005 and bias < 0.35 and lin < 1e-3
+          and fd_err < 1e-2)
+    log(f"dropout: same seed same output {same}, other seed other output {differs}, "
+        f"kept fraction over 16x8x550x1920 {kept:.5f} (0.9 +- 0.005), mean over 40 seeds "
+        f"at p=0.5 vs p=0: mean|diff|/mean|out| {bias:.3f} (< 0.35), <g,out(v=d)> vs "
+        f"<dv,d> rel {lin:.2e} (< 1e-3), finite difference along q rel {fd_err:.2e} "
+        f"(< 1e-2) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("dropout: a property does not hold")
+
+
+def phase_lap():
+    """The LAP kernel on 528 problems (3 layers x 16 images x 11 groups of
+    50 queries) from matching costs of random outputs and targets with 0-50
+    valid rows, a third of them quantised to 0.25 for ties: bit-identical
+    to lap_solve_plain, and as cheap as scipy's assignment."""
+    from scipy.optimize import linear_sum_assignment
+
+    from monodetr_torch.models.matcher import BIG_COST, matching_cost
+
+    rng = np.random.RandomState(3)
+    Lr, B, Gq, N = 3, 16, 11, 50
+
+    def boxes(*lead):
+        return torch.from_numpy(np.concatenate(
+            [rng.rand(*lead, 2), rng.rand(*lead, 4) * 0.2 + 0.02], -1).astype(np.float32))
+
+    logits = torch.from_numpy(rng.randn(Lr, B, Gq, N, 3).astype(np.float32) * 2)
+    labels = torch.from_numpy(rng.randint(0, 3, (1, B, 1, N)))
+    n_valid = rng.randint(0, N + 1, (Lr, B, Gq))
+    valid = np.arange(N) < n_valid[..., None]
+    cost = matching_cost(logits, boxes(Lr, B, Gq, N), labels, boxes(1, B, 1, N),
+                         torch.from_numpy(valid)).transpose(-1, -2)  # [L, B, G, rows, cols]
+    ties = torch.from_numpy(rng.rand(Lr, B, Gq) < 0.33)
+    cost = torch.where(ties[..., None, None], torch.round(cost * 4) / 4, cost)
+    cost = torch.where(torch.from_numpy(valid)[..., None], cost, BIG_COST).contiguous()
+    rv = torch.from_numpy(valid)
+    cost_d, rv_d = cost.cuda(), rv.cuda()
+    got = lap_solve(cost_d, rv_d).cpu()
+    want = lap_solve_plain(cost, rv)
+    same = torch.equal(got, want)
+    worse = 0
+    c, g = cost.reshape(-1, N, N).numpy(), got.reshape(-1, N).numpy()
+    for p, n in enumerate(n_valid.reshape(-1)):
+        if n:
+            r, cols = linear_sum_assignment(c[p, :n].astype(np.float64))
+            worse += not np.isclose(c[p, np.arange(n), g[p, :n]].astype(np.float64).sum(),
+                                    c[p, :n][r, cols].astype(np.float64).sum(), rtol=1e-6)
+    ms = cuda_ms(lambda: lap_solve(cost_d, rv_d))
+    plain_ms = cuda_ms(lambda: lap_solve_plain(cost_d, rv_d), iters=2)
+    ok = same and worse == 0
+    log(f"kernel lap 528 problems of 50x50, {int(ties.sum())} with ties: bit-identical to "
+        f"lap_solve_plain {same}, costs above scipy's {worse} {'ok' if ok else 'FAIL'}; "
+        f"{ms:.3f} ms, plain (on the card) {plain_ms:.3f} ms")
+    if not ok:
+        raise RuntimeError("lap: the kernel disagrees with its plain version or scipy")
+    return {"lap": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)}
+
+
+def phase_eval_slice():
     """Tester.inference in bf16 at batch 16 with the launch counts read
     around it; then the f32 forward at B=2, kernels against plain versions."""
     import logging
@@ -206,7 +393,7 @@ def phase_slice():
     from monodetr_torch.eval.tester import Tester
     from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
 
-    n_batches, batch = 3, 16
+    n_batches, batch = 2, 16
     model = build_monodetr(MONODETR_MODEL, seed=444).to("cuda", compute_dtype(MONODETR_MODEL))
     logging.basicConfig(level=logging.WARNING)
     # threshold 0: random weights score every pick near the 0.01 class
@@ -216,7 +403,7 @@ def phase_slice():
     reset_launches()
     results = tester.inference()
     torch.cuda.synchronize()
-    counts = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    counts = {k: v for k, v in read_launches().items() if v}
     per_forward = {"msda_enc_fused": 3, "msda_sep": 3, "attention_fwd": 1}
     rows = [r for preds in results.values() for r in preds]
     ok = (counts == {k: v * n_batches for k, v in per_forward.items()}
@@ -224,15 +411,15 @@ def phase_slice():
           and np.isfinite(np.asarray(rows, np.float64)).all()
           and all(len(r) == 14 for r in rows))
     txts = len(os.listdir(tester.results_dir))
-    log(f"slice: Tester.inference bf16 {n_batches} x {batch} images 384x1280: "
+    log(f"eval slice: Tester.inference bf16 {n_batches} x {batch} images 384x1280: "
         f"{tester.ms_per_img:.2f} ms/img, launches {counts} (want {per_forward} per "
         f"forward), {len(rows)} KITTI rows in {txts} txts {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError("slice: wrong launch counts or decoded rows")
+        raise RuntimeError("eval slice: wrong launch counts or decoded rows")
     batch0, _ = next(iter(SyntheticLoader(1, batch, 0)))
     dets = tester.predict(batch0["images"], batch0["calibs"], batch0["img_sizes"])
     if dets.shape != (batch, 50, 37) or not np.isfinite(dets).all():
-        raise RuntimeError(f"slice: detections {dets.shape} not finite [B, 50, 37]")
+        raise RuntimeError(f"eval slice: detections {dets.shape} not finite [B, 50, 37]")
     del model, tester
 
     # f32, TF32 off: the same model through the kernels and through the
@@ -251,19 +438,135 @@ def phase_slice():
             for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth")}
     ok = all(e <= tol for e in errs.values()) and all(
         torch.isfinite(got[k]).all().item() for k in errs)
-    log(f"slice: f32 forward B=2, kernels vs plain versions: "
+    log("eval slice: f32 forward B=2, kernels vs plain versions: "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
         + f" (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError("slice: the f32 forward through the kernels disagrees")
-    return counts
+        raise RuntimeError("eval slice: the f32 forward through the kernels disagrees")
+
+
+def phase_train_slice(n_steps=6, batch=16):
+    """6 bf16 train steps at batch 16 with dropout 0.1 through the kernels;
+    launch counts, finite and moving losses, bf16 kernel inputs, step time."""
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
+    from monodetr_torch.train.optimizer import build_optimizer
+    from monodetr_torch.train.train_step import batch_to_device, make_train_step
+
+    model = build_monodetr(MONODETR_MODEL, seed=444).cuda()  # f32 parameters
+    opt = build_optimizer({"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4}, model)
+    dtype = compute_dtype(MONODETR_MODEL)
+    step = make_train_step(model, SetCriterion(MONODETR_MODEL), opt, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [batch_to_device(b, "cuda") for b, _ in SyntheticLoader(n_steps, batch, 2)]
+    seen = set()
+    dtype_code = _build.dtype_code
+
+    def recording(dt):  # every MSDA / attention wrapper passes its dtype here
+        seen.add(dt)
+        return dtype_code(dt)
+
+    _build.dtype_code = recording
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+        events[0].record()
+        losses = []
+        for i, b in enumerate(batches):
+            losses.append(step(b, 2e-4, gen))
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        counts = read_launches()
+    finally:
+        _build.dtype_code = dtype_code
+    per_step = {"msda_enc_fused": 3, "msda_enc_fused_bwd": 3, "msda_sep": 3, "msda_sep_bwd": 3,
+                "attention_fwd": 4, "attention_bwd": 4, "lap": 1}
+    values = np.stack([lv.values.cpu().numpy() for lv in losses])
+    totals = values[:, losses[0].keys_.index("loss_detr")]
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_steps)]
+    steady = float(np.mean(ms[2:]))
+    ok = (counts == {k: v * n_steps for k, v in per_step.items()}
+          and np.isfinite(values).all() and len(set(totals.tolist())) == n_steps
+          and seen == {torch.bfloat16} and len(losses[0].keys_) == 2 + 7 * 3 + 1)
+    log(f"train slice: {n_steps} train steps, batch {batch}, 384x1280, bf16 compute, f32 "
+        f"parameters and AdamW state, dropout 0.1: loss_detr "
+        + " ".join(f"{t:.3f}" for t in totals)
+        + f"; launches {counts} (want {per_step} per step); kernel dtypes "
+        f"{sorted(str(d) for d in seen)} {'ok' if ok else 'FAIL'}")
+    log(f"train slice: ms/step by CUDA events " + " ".join(f"{m:.1f}" for m in ms)
+        + f"; steps 3-{n_steps}: {steady:.1f} ms/step, {1000 * batch / steady:.1f} img/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    if not ok:
+        raise RuntimeError("train slice: wrong launch counts, losses or kernel dtypes")
+    del model, opt, step, batches
+    torch.cuda.empty_cache()
+    return counts, steady
+
+
+def phase_train_vs_plain():
+    """One f32 train step at B=2 without dropout through the kernels and
+    through the plain versions (LAP included): identical matches, losses
+    to 1e-4 relative, every gradient to 1e-3 * max|g_plain| + 1e-6."""
+    import monodetr_torch.models.matcher as matcher
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr
+    from monodetr_torch.train.train_step import TARGET_KEYS, batch_to_device
+
+    cfg = dict(MONODETR_MODEL, dropout=0.0)
+    model = build_monodetr(cfg, seed=444).cuda()
+    with torch.no_grad():  # encoder samples off integer positions (enc_offsets)
+        for layer in model.depthaware_transformer.encoder.layers:
+            bias = layer.self_attn.sampling_offsets.bias
+            bias.copy_(torch.floor(bias * 16) / 16 + 1 / 32)
+    plain = copy.deepcopy(model).use_plain_ops(True)
+    crit = SetCriterion(cfg)
+    b, _ = next(iter(SyntheticLoader(1, 2, 3)))
+    b = batch_to_device(b, "cuda")
+    targets = {k: b[k] for k in TARGET_KEYS}
+    results = []
+    for m, lap in ((model, lap_solve), (plain, lap_solve_plain)):
+        matcher.lap_solve = lap
+        try:
+            out = m(b["images"], b["calibs"], b["img_sizes"], train=True)
+            matched = crit.match(out, targets)
+            losses = crit(out, targets)
+        finally:
+            matcher.lap_solve = lap_solve
+        crit.total(losses).backward()
+        results.append((matched, losses, {n: p.grad for n, p in m.named_parameters()
+                                          if p.grad is not None}))
+    (m_k, l_k, g_k), (m_p, l_p, g_p) = results
+    same = torch.equal(m_k, m_p)
+    loss_err = max(abs(l_k[k].item() - l_p[k].item()) / max(abs(l_p[k].item()), 1e-12)
+                   for k in l_p)
+    worst, worst_name = 0.0, ""
+    for n, gp in g_p.items():
+        e = ((g_k[n] - gp).abs().max() / (1e-3 * gp.abs().max() + 1e-6)).item()
+        if e > worst:
+            worst, worst_name = e, n
+    ok = same and loss_err <= 1e-4 and worst <= 1.0 and g_k.keys() == g_p.keys()
+    log(f"train vs plain: f32 step B=2, dropout 0: matches identical {same}, losses max rel "
+        f"{loss_err:.2e} (tol 1e-4), {len(g_p)} gradients: worst |a-b| / (1e-3 max|b| + 1e-6) "
+        f"{worst:.3f} at {worst_name} (<= 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("train vs plain: the f32 step through the kernels disagrees")
 
 
 def main():
     phase_environment()
     phase_build()
-    report = phase_kernels()
-    counts = phase_slice()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = phase_forward_kernels()
+    report.update(phase_backward_kernels())
+    phase_dropout()
+    report.update(phase_lap())
+    phase_eval_slice()
+    phase_train_vs_plain()
+    counts, _ = phase_train_slice()
     log(json.dumps({"kernels": [
         dict(name=name, route=spec["route"], source=spec["source"],
              replaces=spec["replaces"], launches=counts[name], **report[name])

@@ -29,12 +29,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 # entry point -> argument types (see csrc/*.cu)
 SIGNATURES = {
     "mdt_msda_enc_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P),
+    "mdt_msda_enc_fused_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _F, _P),
     "mdt_msda_sep": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    "mdt_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "mdt_msda_sep_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
+    "mdt_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_F, _P, _U, _P),
+    "mdt_attention_bwd": (_P,) * 10 + (_I,) * 5 + (_F, _P, _U, _P),
+    "mdt_attention_keep_mask": (_P, _I, _I, _I, _P, _U, _P),
+    "mdt_lap": (_P, _P, _P, _I, _I, _P),
 }
 
 

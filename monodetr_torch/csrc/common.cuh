@@ -101,4 +101,58 @@ __device__ __forceinline__ float sample_heads_sum(const T* __restrict__ v, int64
   return acc;
 }
 
+// Backward of sample_heads_sum, by the same warp layout.  `g` is lane d's
+// channel of the output gradient.  For each sample j, adds
+// att_j * (corner weight) * g_d to the f32 value gradient `gv` (laid out as
+// `v`) by atomics, and leaves in lane j:
+//   gatt = sum_d g_d * sample_j[d],
+//   gx, gy = att_j * sum_d g_d * d sample_j[d] / d(x, y).
+// The derivative is the one-sided bilinear one at x0 = floor(x) (the
+// convention of F.grid_sample's backward): at an integer position it is
+// v[x0 + 1] - v[x0].  Corners outside the level count as zero.
+template <typename T>
+__device__ __forceinline__ void sample_heads_bwd(const T* __restrict__ v, float* gv, int64_t row,
+                                                 const Levels& lv, int P, float att, float fx,
+                                                 float fy, float g, int lane, float& gatt,
+                                                 float& gx, float& gy) {
+  const int LP = lv.n * P;
+  gatt = gx = gy = 0.f;
+  for (int j = 0; j < LP; ++j) {
+    const float a = __shfl_sync(kFullMask, att, j);
+    const float x = __shfl_sync(kFullMask, fx, j);
+    const float y = __shfl_sync(kFullMask, fy, j);
+    const int l = j / P;
+    const int hl = lv.h[l], wl = lv.w[l];
+    const int64_t off0 = (int64_t)lv.start[l] * row + lane;
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const float lx = x - x0f, ly = y - y0f;
+    const bool vx0 = x0 >= 0 && x0 < wl, vx1 = x0 + 1 >= 0 && x0 + 1 < wl;
+    const bool vy0 = y0 >= 0 && y0 < hl, vy1 = y0 + 1 >= 0 && y0 + 1 < hl;
+    const int64_t i00 = off0 + ((int64_t)y0 * wl + x0) * row;
+    const int64_t i01 = i00 + row, i10 = i00 + (int64_t)wl * row, i11 = i10 + row;
+    const float v00 = (vy0 && vx0) ? to_f32(v[i00]) : 0.f;
+    const float v01 = (vy0 && vx1) ? to_f32(v[i01]) : 0.f;
+    const float v10 = (vy1 && vx0) ? to_f32(v[i10]) : 0.f;
+    const float v11 = (vy1 && vx1) ? to_f32(v[i11]) : 0.f;
+    const float s = (1.f - lx) * (1.f - ly) * v00 + lx * (1.f - ly) * v01 +
+                    (1.f - lx) * ly * v10 + lx * ly * v11;
+    const float dx = (1.f - ly) * (v01 - v00) + ly * (v11 - v10);
+    const float dy = (1.f - lx) * (v10 - v00) + lx * (v11 - v01);
+    const float sa = warp_sum(g * s), sx = warp_sum(g * dx), sy = warp_sum(g * dy);
+    if (lane == j) {
+      gatt = sa;
+      gx = a * sx;
+      gy = a * sy;
+    }
+    const float ga = a * g;
+    if (a != 0.f) {  // a is the same in every lane: the branch is uniform
+      if (vy0 && vx0) atomicAdd(gv + i00, ga * (1.f - lx) * (1.f - ly));
+      if (vy0 && vx1) atomicAdd(gv + i01, ga * lx * (1.f - ly));
+      if (vy1 && vx0) atomicAdd(gv + i10, ga * (1.f - lx) * ly);
+      if (vy1 && vx1) atomicAdd(gv + i11, ga * lx * ly);
+    }
+  }
+}
+
 }  // namespace mdt

@@ -1,21 +1,77 @@
 """Evaluation orchestration (monodetr_tpu/eval/tester.py): the checkpoint
 to evaluate, batched no-grad inference with per-image timing, top-k
-extraction on the device, host decode to KITTI txt files.
+extraction on the device, host decode to KITTI txt files, and the official
+KITTI AP evaluation of those files.
 
-Checkpoints are the JAX package's (train/checkpoint.py: a pickle of numpy
-pytrees, `model_state` holding the flax params); they load through
-convert.params_from_jax.  AP evaluation is not ported: see `evaluate`.
+Checkpoints are the JAX package's format (train/checkpoint.py: a pickle of
+numpy pytrees, `model_state` holding the flax params); they load through
+convert.params_from_jax.  The AP evaluator is the JAX package's pure-numpy
+monodetr_tpu/eval/kitti_eval/, loaded from its directory under a package
+name of its own at the first evaluation, so that monodetr_tpu/eval/__init__.py
+(which imports jax) never runs.
 """
 
+import importlib
+import importlib.util
 import os
 import pickle
+import sys
 import time
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..convert import params_from_jax
 from .decode import P2Camera, decode_detections, extract_dets_from_outputs, save_results
+
+JAX_PACKAGE_DIR = Path(__file__).resolve().parents[2] / "monodetr_tpu"
+KITTI_EVAL_ROOT = "monodetr_torch_kitti"
+
+
+def kitti_eval_modules():
+    """(kitti_common, eval) of monodetr_tpu/eval/kitti_eval, imported as
+    `monodetr_torch_kitti.eval.kitti_eval`: a package of that name holds
+    monodetr_tpu/native.py (the evaluator's optional C++ matcher, ctypes and
+    numpy only) and an `eval` package whose path is monodetr_tpu/eval, with
+    neither package's __init__ run."""
+    root = KITTI_EVAL_ROOT
+    if root not in sys.modules:
+        top = types.ModuleType(root)
+        top.__path__ = []
+        spec = importlib.util.spec_from_file_location(root + ".native",
+                                                      JAX_PACKAGE_DIR / "native.py")
+        native = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(native)
+        top.native = native
+        ev = types.ModuleType(root + ".eval")
+        ev.__path__ = [str(JAX_PACKAGE_DIR / "eval")]
+        sys.modules.update({root: top, root + ".native": native, root + ".eval": ev})
+    return (importlib.import_module(root + ".eval.kitti_eval.kitti_common"),
+            importlib.import_module(root + ".eval.kitti_eval.eval"))
+
+
+def kitti_eval(results_dir, label_dir, idx_list, writelist, logger):
+    """Official KITTI AP of the result txts against the labels, as
+    monodetr_tpu/data/kitti_dataset.py:KITTIDataset.eval (:115-136) does it;
+    returns the Car moderate AP3D_R40 (0 when Car is not evaluated)."""
+    kitti, ev = kitti_eval_modules()
+    logger.info("==> Loading detections and GTs...")
+    dt_annos = kitti.get_label_annos(results_dir)
+    gt_annos = kitti.get_label_annos(label_dir, [int(i) for i in idx_list])
+    test_id = {"Car": 0, "Pedestrian": 1, "Cyclist": 2}
+    logger.info("==> Evaluating (official) ...")
+    car_moderate = 0
+    for category in writelist:
+        if category not in test_id:
+            continue
+        results_str, _, map3d_r40 = ev.get_official_eval_result(
+            gt_annos, dt_annos, test_id[category])
+        if category == "Car":
+            car_moderate = map3d_r40
+        logger.info(results_str)
+    return car_moderate
 
 
 def load_checkpoint(filename, logger=None):
@@ -61,11 +117,12 @@ class Tester:
         state = load_checkpoint(path, self.logger)
         sd = params_from_jax(state["model_state"])
         dtype = self.model.query_embed.weight.dtype
-        self.model.load_state_dict({k: v.to(dtype) for k, v in sd.items()})
+        self.model.load_state_dict({k: v.to(self.device, dtype) for k, v in sd.items()})
 
     def test(self):
         """Single-checkpoint evaluation: load the checkpoint if one is on
-        disk, else keep the model's weights; write the KITTI txts."""
+        disk, else keep the model's weights; write the KITTI txts and
+        evaluate them (tester.py:48-81).  Returns the decoded results."""
         if self.cfg.get("mode", "single") != "single":
             raise NotImplementedError(
                 "tester mode 'all' is not ported (ROADMAP.md section A)")
@@ -75,7 +132,9 @@ class Tester:
         else:
             self.logger.info("no checkpoint on disk (%s); evaluating in-memory "
                              "weights" % path)
-        return self.inference()
+        results = self.inference()
+        self.evaluate()
+        return results
 
     @torch.no_grad()
     def predict(self, images, calibs, img_sizes):
@@ -119,7 +178,10 @@ class Tester:
         save_results(results, self.results_dir)
 
     def evaluate(self):
-        raise NotImplementedError(
-            "KITTI AP evaluation is not ported: the KITTI evaluator is reached "
-            "through monodetr_tpu.eval, whose __init__ imports jax; see "
-            "ROADMAP.md section A")
+        """Car moderate AP3D_R40 of the txts that `inference` wrote, against
+        the loader's dataset labels (its label_dir, idx_list, writelist)."""
+        if not os.path.exists(self.results_dir):
+            raise FileNotFoundError(self.results_dir)
+        ds = self.dataloader.dataset
+        return kitti_eval(self.results_dir, ds.label_dir, ds.idx_list, ds.writelist,
+                          self.logger)

@@ -11,6 +11,12 @@ three.  The stem is a plain 7x7/2 convolution: the JAX
 package's StemConv computes the same convolution by space-to-depth for the
 TPU and takes the same [7, 7, 3, 64] weight.  Activations stay NCHW in
 `channels_last` memory, which is NHWC in memory like the JAX layout.
+
+The stem and layer1 never train (reference backbone.py:71-73): their
+parameters have requires_grad=False and the graph is cut after layer1, as
+the JAX package's stop_gradient does (backbone.py:229-237).  The FrozenBN
+statistics are buffers, so folding them into a convolution differentiates
+only the convolution's weight.
 """
 
 import torch
@@ -83,11 +89,13 @@ class ResNetBody(nn.Module):
                 cin = width * 4
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             width *= 2
+        for frozen in (self.conv1, self.layer1):
+            frozen.requires_grad_(False)
 
     def forward(self, x):
         x = F.relu(conv_bn(self.conv1, self.bn1, x))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        x = self.layer1(x)
+        x = self.layer1(x).detach()
         f8 = self.layer2(x)
         f16 = self.layer3(f8)
         return f8, f16, self.layer4(f16)

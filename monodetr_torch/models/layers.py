@@ -1,6 +1,10 @@
 """Shared building blocks (monodetr_tpu/models/layers.py): the ReLU MLP
-head, torch-compatible multi-head attention over [B, T, C], conv + GroupNorm
-and the post-norm FFN."""
+head, torch-compatible multi-head attention over [B, T, C], conv + GroupNorm,
+the post-norm FFN, and dropout.
+
+Dropout is flax's nn.Dropout: x / (1 - p) where kept, P(keep) = 1 - p.
+Every random draw comes from an explicit torch.Generator passed down the
+forward (`gen`); with gen None (evaluation) dropout is the identity."""
 
 from torch import nn
 import torch
@@ -9,8 +13,18 @@ import torch.nn.functional as F
 from ..ops.attention import attention_plain, fused_attention
 
 # attention with more logits than this per (batch, head) runs in the fused
-# kernel (layers.py:98-100): at eval only the depth encoder's 1920 x 1920
+# kernel (layers.py:98-100): the depth encoder's 1920 x 1920 and, in
+# training, the decoder's 550 x 1920 depth cross-attention
 FUSED_ATTENTION_MIN_LOGITS = 1_000_000
+
+
+def dropout(x, p, gen):
+    """Inverted dropout with the keep mask drawn from `gen` (on x's
+    device); the identity when gen is None or p == 0."""
+    if gen is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class MLP(nn.Module):
@@ -33,19 +47,23 @@ class MLP(nn.Module):
 class MultiheadAttention(nn.Module):
     """softmax(Q K^T / sqrt(d_head)) V with nn.MultiheadAttention's packed
     in-projection parameters; no masks (every caller's mask is all-valid).
+    In training (`gen` given) dropout p applies to the probabilities after
+    their cast to the compute dtype (layers.py:125-137); the fused kernel
+    draws its mask from a seed taken from `gen`.
 
     `plain_ops` selects the plain PyTorch attention over the fused kernel
     for a CUDA tensor, for comparing the two."""
 
-    def __init__(self, d_model, num_heads):
+    def __init__(self, d_model, num_heads, dropout=0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
         self.plain_ops = False
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, gen=None):
         B, Tq, C = q.shape
         Tk = k.shape[1]
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
@@ -56,10 +74,17 @@ class MultiheadAttention(nn.Module):
 
         qh, kh, vh = heads(q, w_q, b_q, Tq), heads(k, w_k, b_k, Tk), heads(v, w_v, b_v, Tk)
         scale = qh.shape[-1] ** -0.5
+        p = self.dropout if gen is not None else 0.0
         if Tq * Tk > FUSED_ATTENTION_MIN_LOGITS and not self.plain_ops:
-            out = fused_attention(qh, kh, vh, 0, scale, 0.0)
+            seed = (torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=q.device)
+                    if p > 0.0 else 0)
+            out = fused_attention(qh, kh, vh, seed, scale, p)
         else:
-            out = attention_plain(qh, kh, vh, scale)
+            keep = None
+            if p > 0.0:
+                keep = torch.rand(B, self.num_heads, Tq, Tk, generator=gen,
+                                  device=q.device) >= p
+            out = attention_plain(qh, kh, vh, scale, keep, p)
         return self.out_proj(out.transpose(1, 2).reshape(B, Tq, C))
 
 
@@ -71,7 +96,8 @@ def conv_gn(cin, cout, kernel=1, stride=1, groups=32):
         nn.GroupNorm(groups, cout, eps=1e-5))
 
 
-def ffn(x, linear1, linear2, norm):
-    """Post-norm FFN block at eval: norm(x + linear2(relu(linear1(x))))
-    (depthaware_transformer.py:339-343)."""
-    return norm(x + linear2(F.relu(linear1(x))))
+def ffn(x, linear1, linear2, norm, p=0.0, gen=None):
+    """Post-norm FFN block: norm(x + dropout(linear2(dropout(relu(linear1(x))))))
+    (layers.py:218-224, depthaware_transformer.py:339-343)."""
+    h = dropout(F.relu(linear1(x)), p, gen)
+    return norm(x + dropout(linear2(h), p, gen))

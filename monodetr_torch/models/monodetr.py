@@ -1,14 +1,15 @@
 """MonoDETR: backbone -> input projections -> depth predictor ->
 depth-aware transformer -> per-layer heads with three-way depth fusion
-(monodetr_tpu/models/monodetr.py, reference monodetr.py:150-283), eval
-forward of the shipped configuration.
+(monodetr_tpu/models/monodetr.py, reference monodetr.py:150-283), the eval
+and training forward of the shipped configuration.
 
 Parameter names are the reference checkpoint's `state_dict` keys, so
 convert.py and tools/convert_checkpoint.py map them to and from the JAX
 parameter tree.  Run the model in a compute dtype by casting it
 (`model.to(dtype)`); the places where the JAX model computes in f32
 whatever its dtype (reference points, depth logits and bins, the heads'
-outputs and the depth fusion) are f32 here too.
+outputs and the depth fusion) are f32 here too.  Training keeps f32
+parameters and computes in bf16 under torch.autocast (train/train_step.py).
 """
 
 import math
@@ -32,7 +33,7 @@ class MonoDETR(nn.Module):
                  num_depth_bins=80, depth_min=1e-3, depth_max=60.0, with_box_refine=True,
                  init_box=False, two_stage=False, use_dab=False, two_stage_dino=False,
                  position_embedding="sine", msda_impl="gather", msda_window=8,
-                 dec_msda_impl="sep"):
+                 dec_msda_impl="sep", dropout=0.1):
         super().__init__()
         if position_embedding != "sine" or backbone_name != "resnet50" or dilation:
             raise NotImplementedError(
@@ -53,7 +54,7 @@ class MonoDETR(nn.Module):
         self.depthaware_transformer = DepthAwareTransformer(
             hidden_dim, nheads, enc_layers, dec_layers, dim_feedforward, num_feature_levels,
             enc_n_points, dec_n_points, two_stage, use_dab, two_stage_dino,
-            msda_impl, msda_window, dec_msda_impl)
+            msda_impl, msda_window, dec_msda_impl, dropout, group_num, num_queries)
         self.query_embed = nn.Embedding(num_queries * group_num, 2 * hidden_dim)
         self.class_embed = nn.ModuleList(
             nn.Linear(hidden_dim, num_classes) for _ in range(dec_layers))
@@ -74,9 +75,12 @@ class MonoDETR(nn.Module):
                 m.plain_ops = plain
         return self
 
-    def forward(self, images, calibs, img_sizes):
+    def forward(self, images, calibs, img_sizes, train=False, gen=None):
         """images [B, H, W, 3] normalised (NHWC, as the JAX model takes
         them); calibs [B, 3, 4] P2; img_sizes [B, 2] original (w, h).
+        train: all num_queries * group_num queries (monodetr.py:239-241),
+        else the first num_queries; gen: the torch.Generator (on the
+        images' device) that every dropout draws from, None for no dropout.
         Returns pred_logits / pred_boxes / pred_3d_dim / pred_depth /
         pred_angle / pred_depth_map_logits / weighted_depth / aux_outputs."""
         dtype = self.query_embed.weight.dtype
@@ -90,12 +94,12 @@ class MonoDETR(nn.Module):
                .expand(B, -1, -1, -1) for s in srcs]
 
         depth_logits, depth_tokens, weighted_depth, _ = self.depth_predictor(
-            srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype))
+            srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype), gen)
 
+        queries = self.query_embed.weight if train else self.query_embed.weight[:self.num_queries]
         hs, refs_in, inter_dims = self.depthaware_transformer(
-            [s.permute(0, 2, 3, 1) for s in srcs], pos,
-            self.query_embed.weight[:self.num_queries], depth_tokens,
-            self.bbox_embed, self.dim_embed_3d)
+            [s.permute(0, 2, 3, 1) for s in srcs], pos, queries, depth_tokens,
+            self.bbox_embed, self.dim_embed_3d, gen)
 
         fy = calibs[:, 0, 0][:, None].float()  # focal (monodetr.py:242)
         outs = []
@@ -225,6 +229,7 @@ def build_monodetr(cfg, seed=None) -> MonoDETR:
         msda_impl=cfg.get("msda_impl", "gather"),
         msda_window=cfg.get("msda_window", 8),
         dec_msda_impl=cfg.get("dec_msda_impl", "sep"),
+        dropout=cfg.get("dropout", 0.1),
     )
     if seed is not None:
         init_params(model, torch.Generator().manual_seed(seed))

@@ -1,0 +1,118 @@
+"""Batched exact linear assignment (the Hungarian matcher's solver).
+
+Counterpart of monodetr_tpu/models/matcher.py:lap_solve and
+monodetr_tpu/ops/lap_pallas.py:lap_solve_pallas.  `lap_solve` runs the CUDA
+kernel csrc/lap.cu:lap_kernel for a CUDA tensor (all problems in one
+launch) and `lap_solve_plain` for a CPU tensor.  `lap_solve_plain` is the
+plain PyTorch version: lap_solve transcribed op for op, batched over the
+problems as jax.vmap batches it (a problem whose loop has ended keeps its
+state while the others run on).  Both are bit-identical to lap_solve and
+to scipy.optimize.linear_sum_assignment on the same f32 costs: every sum
+is taken in lap_solve's order and there are no products.
+"""
+
+import torch
+
+from .. import _build
+
+INF = 1e18  # lap_solve's "infinity"
+
+
+def lap_solve_plain(cost, row_valid):
+    """cost [..., N, N] f32, row_valid [..., N] bool -> col4row [..., N]
+    int32: the column assigned to each valid row, -1 for skipped rows."""
+    *lead, N, _ = cost.shape
+    C = cost.reshape(-1, N, N).float()
+    rv = row_valid.reshape(-1, N).bool()
+    Pn = C.shape[0]
+    dev = C.device
+    ar = torch.arange(Pn, device=dev)
+    cols = torch.arange(N, device=dev)
+    inf = torch.tensor(INF, dtype=torch.float32, device=dev)
+
+    # greedy row-reduction init: u = row minimum, v = 0, each column taken
+    # by the lowest valid row whose argmin it is
+    u = torch.where(rv, C.min(2).values, torch.zeros((), device=dev))
+    v = torch.zeros(Pn, N, device=dev)
+    jmin = C.argmin(2)
+    col4row = torch.full((Pn, N), -1, dtype=torch.long, device=dev)
+    row4col = torch.full((Pn, N), -1, dtype=torch.long, device=dev)
+    for i in range(N):
+        j = jmin[:, i]
+        take = rv[:, i] & (row4col[ar, j] < 0)
+        row4col[ar[take], j[take]] = i
+        col4row[ar[take], i] = j[take]
+
+    n_work = torch.where(rv, cols, -1).max(1).values + 1
+    for cur in range(int(n_work.max().item()) if Pn else 0):
+        active = (cur < n_work) & rv[:, cur] & (col4row[:, cur] < 0)
+        if not bool(active.any()):
+            continue
+        shortest = torch.full((Pn, N), INF, device=dev)
+        path_row = torch.full((Pn, N), -1, dtype=torch.long, device=dev)
+        SR = torch.zeros(Pn, N, dtype=torch.bool, device=dev)
+        SC = torch.zeros(Pn, N, dtype=torch.bool, device=dev)
+        i = torch.full((Pn,), cur, dtype=torch.long, device=dev)
+        min_val = torch.zeros(Pn, device=dev)
+        sink = torch.where(active, -1, 0)
+        while True:
+            go = sink < 0
+            if not bool(go.any()):
+                break
+            SR[ar[go], i[go]] = True
+            cand = ((min_val[:, None] + C[ar, i]) - u[ar, i][:, None]) - v
+            better = (cand < shortest) & ~SC & go[:, None]
+            shortest = torch.where(better, cand, shortest)
+            path_row = torch.where(better, i[:, None], path_row)
+            masked = torch.where(SC, inf, shortest)
+            j = masked.argmin(1)  # the lowest index on ties
+            min_val = torch.where(go, masked[ar, j], min_val)
+            SC[ar[go], j[go]] = True
+            r = row4col[ar, j]
+            sink = torch.where(go & (r < 0), j, sink)
+            i = torch.where(go & (r >= 0), r, i)
+
+        # dual updates, with the assignment from before the augmentation
+        u[active, cur] = u[active, cur] + min_val[active]
+        sh_c = shortest.gather(1, col4row.clamp(min=0))
+        row_upd = SR & (cols != cur) & (col4row >= 0) & active[:, None]
+        u = torch.where(row_upd, u + (min_val[:, None] - sh_c), u)
+        v = torch.where(SC & active[:, None], v - (min_val[:, None] - shortest), v)
+
+        # augment along the alternating path ending at sink
+        j = sink
+        done = ~active
+        while not bool(done.all()):
+            pi = path_row[ar, j.clamp(min=0)]
+            todo = ~done
+            row4col[ar[todo], j[todo]] = pi[todo]
+            j_next = col4row[ar, pi.clamp(min=0)]
+            col4row[ar[todo], pi[todo]] = j[todo]
+            done = done | (pi == cur)
+            j = torch.where(done, j, j_next)
+    return col4row.to(torch.int32).reshape(*lead, N)
+
+
+def lap_solve(cost, row_valid):
+    """Exact LAP, batched: cost [..., N, N] f32, row_valid [..., N] bool ->
+    col4row [..., N] int32 (-1 for skipped rows), N <= 64.  On CUDA the
+    whole batch solves in one launch of the kernel."""
+    if cost.device.type == "cpu":
+        return lap_solve_plain(cost, row_valid)
+    *lead, N, N2 = cost.shape
+    if N != N2 or tuple(row_valid.shape) != (*lead, N):
+        raise ValueError(f"lap_solve: cost {tuple(cost.shape)}, row_valid "
+                         f"{tuple(row_valid.shape)}")
+    if cost.dtype != torch.float32:
+        raise TypeError(f"lap_solve: cost must be float32, not {cost.dtype}")
+    c = cost.contiguous()
+    rv = row_valid.to(torch.uint8).contiguous()
+    _build.require_cuda("lap_solve", c, rv)
+    out = torch.empty(*lead, N, dtype=torch.int32, device=cost.device)
+    _build.launch("mdt_lap", c.data_ptr(), rv.data_ptr(), out.data_ptr(),
+                  out.numel() // N if N else 0, N, _build.stream_of(c))
+    lap_solve.launches += 1
+    return out
+
+
+lap_solve.launches = 0

@@ -3,9 +3,11 @@ prologue (per-head softmax, window clamp, static centres) inside the kernel.
 
 Counterpart of monodetr_tpu/ops/msda_enc_pallas.py:ms_deform_attn_enc_fused,
 same signature and offset feature order.  The CUDA kernel is
-csrc/msda.cu:msda_enc_fused_kernel; `ms_deform_attn_enc_fused_plain` is its
-plain PyTorch version (softmax -> clip to +-lim -> exact MSDA at centre +
-offset, the composition of tests/test_msda_enc_fused.py:oracle).
+csrc/msda.cu:msda_enc_fused_kernel, its backward msda_enc_fused_bwd_kernel
+(an autograd.Function joins them); `ms_deform_attn_enc_fused_plain` is
+their plain PyTorch version (softmax -> clip to +-lim -> exact MSDA at
+centre + offset, the composition of tests/test_msda_enc_fused.py:oracle),
+whose gradients come from autograd.
 """
 
 import numpy as np
@@ -70,25 +72,16 @@ def ms_deform_attn_enc_fused_plain(value, spatial_shapes, off, logits,
                              att.view(B, S, H, L, P))
 
 
-def ms_deform_attn_enc_fused(value, spatial_shapes, off, logits, window=8):
-    """Windowed MSDA for grid queries (Q == S, level-major).
-
-    value:  [B, S, H, D] projected value tokens
-    off:    [B, S, 2*H*L*P] raw sampling-offset projection, feature order
-            [x(h, lv, p) | y(h, lv, p)], in sampled-level pixels
-    logits: [B, S, H*L*P] raw attention logits, order (h, lv*P + p)
-    Returns [B, S, H*D] in value.dtype: per head, softmax over the L*P
-    logits, then bilinear samples (zero padding) at centre +
-    clip(offset, +-(G/2 - 1 - 0.01)) in every level.
-    """
-    if value.device.type == "cpu":
-        return ms_deform_attn_enc_fused_plain(value, spatial_shapes, off,
-                                              logits, window)
-    name = "ms_deform_attn_enc_fused"
+def _check(name, value, spatial_shapes, off, logits):
     _build.require_cuda(name, value, off, logits)
     if not value.dtype == off.dtype == logits.dtype:
         raise TypeError(f"{name}: value, off and logits must share a dtype")
-    B, S, H, D, L, P = _split(value, spatial_shapes, off, logits)
+    return _split(value, spatial_shapes, off, logits)
+
+
+def _launch_fwd(value, spatial_shapes, off, logits, window):
+    name = "ms_deform_attn_enc_fused"
+    B, S, H, D, L, P = _check(name, value, spatial_shapes, off, logits)
     out = torch.empty(B, S, H * D, dtype=value.dtype, device=value.device)
     _build.launch(
         "mdt_msda_enc_fused", value.data_ptr(), off.data_ptr(),
@@ -99,4 +92,65 @@ def ms_deform_attn_enc_fused(value, spatial_shapes, off, logits, window=8):
     return out
 
 
+def ms_deform_attn_enc_fused_bwd(value, spatial_shapes, off, logits, gout,
+                                 window=8):
+    """The backward kernel (csrc/msda.cu:msda_enc_fused_bwd_kernel) on CUDA
+    tensors: (dvalue, doff, dlogits) in the inputs' dtype for the output
+    gradient `gout` [B, S, H*D].  dvalue is summed in f32 by atomics."""
+    name = "ms_deform_attn_enc_fused_bwd"
+    B, S, H, D, L, P = _check(name, value, spatial_shapes, off, logits)
+    gout = gout.contiguous()
+    if gout.shape != (B, S, H * D) or gout.dtype != value.dtype:
+        raise ValueError(f"{name}: gout {tuple(gout.shape)} {gout.dtype}")
+    _build.require_cuda(name, value, gout)
+    gvalue = torch.zeros(B, S, H, D, dtype=torch.float32, device=value.device)
+    goff = torch.empty_like(off)
+    glogits = torch.empty_like(logits)
+    _build.launch(
+        "mdt_msda_enc_fused_bwd", value.data_ptr(), off.data_ptr(),
+        logits.data_ptr(), gout.data_ptr(), gvalue.data_ptr(), goff.data_ptr(),
+        glogits.data_ptr(), _build.dtype_code(value.dtype), B, S, H, D, L, P,
+        _build.levels_arg(spatial_shapes), window_limit(window),
+        _build.stream_of(value))
+    ms_deform_attn_enc_fused_bwd.launches += 1
+    return gvalue.to(value.dtype), goff, glogits
+
+
+class _EncFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, off, logits, spatial_shapes, window):
+        ctx.save_for_backward(value, off, logits)
+        ctx.geometry = (spatial_shapes, window)
+        return _launch_fwd(value, spatial_shapes, off, logits, window)
+
+    @staticmethod
+    def backward(ctx, gout):
+        value, off, logits = ctx.saved_tensors
+        spatial_shapes, window = ctx.geometry
+        grads = ms_deform_attn_enc_fused_bwd(value, spatial_shapes, off, logits,
+                                             gout, window)
+        return (*grads, None, None)
+
+
+def ms_deform_attn_enc_fused(value, spatial_shapes, off, logits, window=8):
+    """Windowed MSDA for grid queries (Q == S, level-major).
+
+    value:  [B, S, H, D] projected value tokens
+    off:    [B, S, 2*H*L*P] raw sampling-offset projection, feature order
+            [x(h, lv, p) | y(h, lv, p)], in sampled-level pixels
+    logits: [B, S, H*L*P] raw attention logits, order (h, lv*P + p)
+    Returns [B, S, H*D] in value.dtype: per head, softmax over the L*P
+    logits, then bilinear samples (zero padding) at centre +
+    clip(offset, +-(G/2 - 1 - 0.01)) in every level.  Differentiable in
+    value, off and logits: on CUDA the backward is the kernel
+    `ms_deform_attn_enc_fused_bwd`, on the CPU autograd through the plain
+    version.
+    """
+    if value.device.type == "cpu":
+        return ms_deform_attn_enc_fused_plain(value, spatial_shapes, off,
+                                              logits, window)
+    return _EncFused.apply(value, off, logits, tuple(spatial_shapes), window)
+
+
 ms_deform_attn_enc_fused.launches = 0
+ms_deform_attn_enc_fused_bwd.launches = 0

@@ -2,8 +2,9 @@
 decoder's cross-attention into the encoder memory.
 
 Counterpart of monodetr_tpu/ops/msda_sep_pallas.py:ms_deform_attn_sep.
-The CUDA kernel is csrc/msda.cu:msda_sep_kernel; its plain PyTorch version
-is ops/msda.py:ms_deform_attn.
+The CUDA kernels are csrc/msda.cu:msda_sep_kernel and its backward
+msda_sep_bwd_kernel (an autograd.Function joins them); their plain PyTorch
+version is ops/msda.py:ms_deform_attn, whose gradients come from autograd.
 """
 
 import torch
@@ -12,15 +13,7 @@ from .. import _build
 from .msda import ms_deform_attn
 
 
-def ms_deform_attn_sep(value, spatial_shapes, sampling_locations,
-                       attention_weights):
-    """value [B, S, H, D]; sampling_locations [B, Q, H, L, P, 2] and
-    attention_weights [B, Q, H, L, P] in f32.  Returns [B, Q, H*D] in
-    value.dtype: bilinear samples at loc * (w, h) - 0.5, zero padding."""
-    if value.device.type == "cpu":
-        return ms_deform_attn(value, spatial_shapes, sampling_locations,
-                              attention_weights)
-    name = "ms_deform_attn_sep"
+def _check(name, value, spatial_shapes, sampling_locations, attention_weights):
     _build.require_cuda(name, value, sampling_locations, attention_weights)
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
@@ -36,6 +29,12 @@ def ms_deform_attn_sep(value, spatial_shapes, sampling_locations,
             f"{tuple(sampling_locations.shape)}, weights "
             f"{tuple(attention_weights.shape)} do not agree with levels "
             f"{spatial_shapes}")
+    return B, S, Q, H, D, L, P
+
+
+def _launch_fwd(value, spatial_shapes, sampling_locations, attention_weights):
+    B, S, Q, H, D, L, P = _check("ms_deform_attn_sep", value, spatial_shapes,
+                                 sampling_locations, attention_weights)
     out = torch.empty(B, Q, H * D, dtype=value.dtype, device=value.device)
     _build.launch(
         "mdt_msda_sep", value.data_ptr(), sampling_locations.data_ptr(),
@@ -46,4 +45,58 @@ def ms_deform_attn_sep(value, spatial_shapes, sampling_locations,
     return out
 
 
+def ms_deform_attn_sep_bwd(value, spatial_shapes, sampling_locations,
+                           attention_weights, gout):
+    """The backward kernel (csrc/msda.cu:msda_sep_bwd_kernel) on CUDA
+    tensors: (dvalue in value's dtype, dloc f32, dattn f32) for the output
+    gradient `gout` [B, Q, H*D].  dvalue is summed in f32 by atomics."""
+    name = "ms_deform_attn_sep_bwd"
+    B, S, Q, H, D, L, P = _check(name, value, spatial_shapes,
+                                 sampling_locations, attention_weights)
+    gout = gout.contiguous()
+    if gout.shape != (B, Q, H * D) or gout.dtype != value.dtype:
+        raise ValueError(f"{name}: gout {tuple(gout.shape)} {gout.dtype}")
+    _build.require_cuda(name, value, gout)
+    gvalue = torch.zeros(B, S, H, D, dtype=torch.float32, device=value.device)
+    gloc = torch.empty_like(sampling_locations)
+    gattn = torch.empty_like(attention_weights)
+    _build.launch(
+        "mdt_msda_sep_bwd", value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), gout.data_ptr(), gvalue.data_ptr(),
+        gloc.data_ptr(), gattn.data_ptr(), _build.dtype_code(value.dtype),
+        B, S, Q, H, D, L, P, _build.levels_arg(spatial_shapes),
+        _build.stream_of(value))
+    ms_deform_attn_sep_bwd.launches += 1
+    return gvalue.to(value.dtype), gloc, gattn
+
+
+class _Sep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes):
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        ctx.spatial_shapes = spatial_shapes
+        return _launch_fwd(value, spatial_shapes, sampling_locations,
+                           attention_weights)
+
+    @staticmethod
+    def backward(ctx, gout):
+        value, loc, attn = ctx.saved_tensors
+        grads = ms_deform_attn_sep_bwd(value, ctx.spatial_shapes, loc, attn, gout)
+        return (*grads, None)
+
+
+def ms_deform_attn_sep(value, spatial_shapes, sampling_locations,
+                       attention_weights):
+    """value [B, S, H, D]; sampling_locations [B, Q, H, L, P, 2] and
+    attention_weights [B, Q, H, L, P] in f32.  Returns [B, Q, H*D] in
+    value.dtype: bilinear samples at loc * (w, h) - 0.5, zero padding.
+    Differentiable in all three inputs."""
+    if value.device.type == "cpu":
+        return ms_deform_attn(value, spatial_shapes, sampling_locations,
+                              attention_weights)
+    return _Sep.apply(value, sampling_locations, attention_weights,
+                      tuple(spatial_shapes))
+
+
 ms_deform_attn_sep.launches = 0
+ms_deform_attn_sep_bwd.launches = 0

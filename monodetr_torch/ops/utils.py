@@ -1,6 +1,6 @@
 """Small numeric primitives: inverse sigmoid, bilinear grid readout, LID
-depth bins, the sine position table, 1-D embedding lerp and heading-bin
-decode.  Counterpart of monodetr_tpu/ops/utils.py (same math, torch
+depth bins and depth binning, the sine position table, 1-D embedding lerp
+and heading-bin decode.  Counterpart of monodetr_tpu/ops/utils.py (same math, torch
 tensors; the numpy helpers are copied so that nothing here imports jax)."""
 
 import functools
@@ -69,6 +69,27 @@ def lid_bin_values(num_bins, depth_min, depth_max):
     return np.concatenate([vals, [depth_max]]).astype(np.float32)
 
 
+def bin_depths(depth_map, mode="LID", depth_min=1e-3, depth_max=60.0,
+               num_bins=80):
+    """Depth map -> int64 bin indices; out-of-range or non-finite depths go
+    to num_bins (ddn_loss.py:66-102 with target=True): UD uniform bins, LID
+    linearly increasing widths, SID log-spaced."""
+    if mode == "UD":
+        bin_size = (depth_max - depth_min) / num_bins
+        indices = (depth_map - depth_min) / bin_size
+    elif mode == "LID":
+        bin_size = 2 * (depth_max - depth_min) / (num_bins * (1 + num_bins))
+        indices = -0.5 + 0.5 * torch.sqrt(1 + 8 * (depth_map - depth_min) / bin_size)
+    elif mode == "SID":
+        indices = (num_bins * (torch.log(1 + depth_map) - math.log(1 + depth_min))
+                   / (math.log(1 + depth_max) - math.log(1 + depth_min)))
+    else:
+        raise NotImplementedError(f"bin_depths mode {mode!r}")
+    invalid = (indices < 0) | (indices > num_bins) | ~torch.isfinite(indices)
+    indices = torch.where(invalid, torch.full_like(indices, num_bins), indices)
+    return indices.long()
+
+
 def sine_position_encoding(h, w, num_pos_feats=128, temperature=10000.0,
                            scale=2 * math.pi):
     """Normalised sine position table [h, w, 2*num_pos_feats] for an
@@ -91,12 +112,18 @@ def sine_position_encoding(h, w, num_pos_feats=128, temperature=10000.0,
 
 def interpolate_1d_embed(coord, table):
     """Linear interpolation into a 1-D table [n, C] at coord [...] in
-    [0, n-1] (depth_predictor.py:99-104: floor/ceil lerp, ceil clamped)."""
+    [0, n-1] (depth_predictor.py:99-104: floor/ceil lerp, ceil clamped).
+    The rows are read with index_select, whose backward adds into the
+    table by atomics; `table[f]` would take PyTorch's sort-based indexing
+    backward, 31 ms per training step at batch 16 on the H100 (30,720
+    indices into 61 rows)."""
     floor_c = torch.floor(coord)
     delta = (coord - floor_c)[..., None]
-    f = floor_c.long()
+    f = floor_c.long().reshape(-1)
     c = (f + 1).clamp(max=table.shape[0] - 1)
-    return table[f] * (1 - delta) + table[c] * delta
+    rows = coord.shape + table.shape[1:]
+    return (table.index_select(0, f).reshape(rows) * (1 - delta)
+            + table.index_select(0, c).reshape(rows) * delta)
 
 
 def class2angle_np(cls, residual, to_label_format=False):

@@ -40,9 +40,18 @@ def test_plain_matches_pallas_kernel(tq):
 
 
 def test_dropout_is_not_ported():
+    """Dropout is ported: on the CPU, fused_attention at p > 0 is the plain
+    version with a keep mask drawn from torch.Generator().manual_seed(seed)
+    (the kernel's Philox mask is held to it on the card), a function of the
+    seed, with inverted scaling."""
     q, k, v = (torch.from_numpy(x) for x in qkv(np.random.RandomState(0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_attention(q, k, v, 1, SCALE, 0.1)
+    got = fused_attention(q, k, v, 1, SCALE, 0.1)
+    keep = torch.rand(1, 2, 50, 96, generator=torch.Generator().manual_seed(1)) >= 0.1
+    probs = torch.softmax(q @ k.transpose(-1, -2) * SCALE, -1)
+    want = torch.where(keep, probs / 0.9, 0.0) @ v
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, fused_attention(q, k, v, 1, SCALE, 0.1))
+    assert not torch.equal(got, fused_attention(q, k, v, 2, SCALE, 0.1))
 
 
 @pytest.mark.parametrize("tq,tk", [(50, 40), (1100, 1000)])  # below / above 1e6 logits

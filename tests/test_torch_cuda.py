@@ -6,7 +6,10 @@ file imports no JAX, so it runs where only PyTorch is installed:
 
 Tolerances (max |kernel - plain|): 2e-4 in f32 (summation order, and the
 plain MSDA re-normalising pixel positions for grid_sample), 3e-2 in bf16
-(outputs rounded to bf16 at values of order 1).
+(outputs rounded to bf16 at values of order 1).  Gradients are compared as
+max |a - b| / (1 + max |b|): 1e-4 in f32 (the value gradients are summed by
+atomics in another order), 3e-2 in bf16.  The LAP kernel is bit-identical
+to its plain version.
 """
 
 import numpy as np
@@ -14,11 +17,13 @@ import pytest
 import torch
 
 from monodetr_torch.models.monodetr import build_monodetr
-from monodetr_torch.ops.attention import attention_plain, fused_attention
+from monodetr_torch.ops.attention import (attention_keep_mask, attention_plain,
+                                          fused_attention, fused_attention_bwd)
+from monodetr_torch.ops.lap import lap_solve, lap_solve_plain
 from monodetr_torch.ops.msda import ms_deform_attn
-from monodetr_torch.ops.msda_enc import (ms_deform_attn_enc_fused,
+from monodetr_torch.ops.msda_enc import (ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd,
                                          ms_deform_attn_enc_fused_plain, window_limit)
-from monodetr_torch.ops.msda_sep import ms_deform_attn_sep
+from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -26,6 +31,7 @@ H, L, P, D = 8, 4, 4, 32
 SHAPES = ((8, 16), (4, 8), (2, 4), (1, 2))
 FULL_SHAPES = ((48, 160), (24, 80), (12, 40), (6, 20))
 DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)]
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -114,3 +120,162 @@ def test_model_forward_through_kernels(cuda):
     assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1]
     for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
+
+
+def rel_err(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    return ((got.float() - want.float()).abs().max() / (1 + want.float().abs().max())).item()
+
+
+def grads_of(fn, inputs, g):
+    """Gradients of <g, fn(*inputs)> with respect to every input."""
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    (fn(*xs).float() * g).sum().backward()
+    return [x.grad for x in xs]
+
+
+def enc_inputs(shapes, B, dtype, seed):
+    """Offsets are odd multiples of 1/32, some beyond the window (clamped
+    to +-1.99): the grid centres are multiples of 1/16 at levels that
+    halve, so every sample sits >= 0.01 px from an integer position, where
+    the one-sided bilinear derivative would jump (ROADMAP.md C3)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = sum(h * w for h, w in shapes)
+    lim = window_limit(6)
+    value = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    off = (torch.rand(B, S, 256, generator=g, device="cuda") * 2 - 1) * (lim + 1)
+    off = ((torch.floor(off * 16) * 2 + 1) / 32).to(dtype)
+    logits = (torch.randn(B, S, 128, generator=g, device="cuda") * 2).to(dtype)
+    gout = torch.randn(B, S, H * D, generator=g, device="cuda")
+    return (value, off, logits), gout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES])
+def test_enc_fused_backward_kernel(cuda, dtype, shapes):
+    (value, off, logits), g = enc_inputs(shapes, 2, dtype, 3)
+    before = ms_deform_attn_enc_fused_bwd.launches
+    got = grads_of(lambda *x: ms_deform_attn_enc_fused(x[0], shapes, x[1], x[2], 6),
+                   (value, off, logits), g)
+    assert ms_deform_attn_enc_fused_bwd.launches == before + 1
+    want = grads_of(lambda *x: ms_deform_attn_enc_fused_plain(x[0], shapes, x[1], x[2], 6),
+                    (value, off, logits), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+def sep_locations(shape, shapes, gen):
+    """Normalised locations whose pixel positions loc * (w, h) - 0.5 lie in
+    [-1.5, size + 0.5] and >= 0.1 px from any integer."""
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device="cuda")
+    u = torch.rand(*shape, 2, generator=gen, device="cuda")
+    px = torch.floor(u * (wh[:, None] + 2) - 2) + 0.5 + (u * 997 % 1 - 0.5) * 0.8
+    return (px + 0.5) / wh[:, None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q", [50, 550])
+def test_sep_backward_kernel(cuda, dtype, q):
+    gen = torch.Generator(device="cuda").manual_seed(q)
+    S = sum(h * w for h, w in FULL_SHAPES)
+    value = torch.randn(2, S, H, D, generator=gen, device="cuda").to(dtype)
+    loc = sep_locations((2, q, H, L, P), FULL_SHAPES, gen)
+    att = torch.softmax(torch.randn(2, q, H, L * P, generator=gen, device="cuda"), -1)
+    att = att.view(2, q, H, L, P)
+    g = torch.randn(2, q, H * D, generator=gen, device="cuda")
+    before = ms_deform_attn_sep_bwd.launches
+    got = grads_of(lambda *x: ms_deform_attn_sep(x[0], FULL_SHAPES, x[1], x[2]),
+                   (value, loc, att), g)
+    assert ms_deform_attn_sep_bwd.launches == before + 1
+    want = grads_of(lambda *x: ms_deform_attn(x[0], FULL_SHAPES, x[1], x[2]),
+                    (value, loc, att), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,p", [(1920, 1920, 0.0), (550, 1920, 0.1), (130, 70, 0.5)])
+def test_attention_forward_and_backward_with_the_kernels_mask(cuda, dtype, tq, tk, p):
+    """With the keep mask the kernels draw, the kernel's output and
+    gradients match autograd through the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(tq)
+    q, k, v = (torch.randn(2, H, t, D, generator=gen, device=cuda).to(dtype)
+               for t in (tq, tk, tk))
+    g = torch.randn(2, H, tq, D, generator=gen, device=cuda)
+    keep = attention_keep_mask((2, H, tq, tk), 11, p, cuda) if p > 0 else None
+    assert max_err(fused_attention(q, k, v, 11, D ** -0.5, p),
+                   attention_plain(q, k, v, D ** -0.5, keep, p)) <= 3 * TOL_OF[dtype]
+    before = fused_attention_bwd.launches
+    got = grads_of(lambda *x: fused_attention(*x, 11, D ** -0.5, p), (q, k, v), g)
+    assert fused_attention_bwd.launches == before + 1
+    want = grads_of(lambda *x: attention_plain(*x, D ** -0.5, keep, p), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+TOL_OF = dict(DTYPES)
+
+
+def test_attention_dropout_properties(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 2, t, D, generator=gen, device=cuda) for t in (256, 384, 384))
+    a = fused_attention(q, k, v, 7, D ** -0.5, 0.1)
+    assert torch.equal(a, fused_attention(q, k, v, 7, D ** -0.5, 0.1))
+    assert not torch.equal(a, fused_attention(q, k, v, 8, D ** -0.5, 0.1))
+    keep = attention_keep_mask((16, 8, 550, 1920), 5, 0.1, cuda)
+    assert abs(keep.float().mean().item() - 0.9) < 0.005
+    # E[dropout(out)] -> out: inverted scaling is unbiased
+    mean = sum(fused_attention(q, k, v, s, D ** -0.5, 0.5) for s in range(40)) / 40
+    d0 = fused_attention(q, k, v, 0, D ** -0.5, 0.0)
+    assert (mean - d0).abs().mean() < 0.35 * d0.abs().mean()
+    # out is linear in v: <g, out(v=d)> == <dL/dv, d> iff the backward
+    # regenerates the forward's mask
+    g = torch.randn(q.shape, generator=gen, device=cuda)
+    d = torch.randn(v.shape, generator=gen, device=cuda)
+    vv = v.clone().requires_grad_(True)
+    (fused_attention(q, k, vv, 7, D ** -0.5, 0.1) * g).sum().backward()
+    lhs = (fused_attention(q, k, d, 7, D ** -0.5, 0.1) * g).sum().item()
+    rhs = (vv.grad * d).sum().item()
+    assert abs(lhs - rhs) <= 1e-3 * abs(rhs)
+
+
+def test_wrappers_pass_gradients_on_cuda(cuda):
+    """Every differentiable input of the three kernel wrappers receives a
+    finite, non-zero gradient on the card."""
+    (value, off, logits), g = enc_inputs(SHAPES, 1, torch.float32, 1)
+    for grad in grads_of(lambda *x: ms_deform_attn_enc_fused(x[0], SHAPES, x[1], x[2], 6),
+                         (value, off, logits), g):
+        assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    S = sum(h * w for h, w in SHAPES)
+    loc = torch.rand(1, 7, H, L, P, 2, device=cuda)
+    att = torch.softmax(torch.randn(1, 7, H, L * P, device=cuda), -1).view(1, 7, H, L, P)
+    for grad in grads_of(lambda *x: ms_deform_attn_sep(x[0], SHAPES, x[1], x[2]),
+                         (value[:, :S], loc, att), torch.randn(1, 7, H * D, device=cuda)):
+        assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    q, k, v = (torch.randn(1, H, 40, D, device=cuda) for _ in range(3))
+    for p in (0.0, 0.1):
+        for grad in grads_of(lambda *x: fused_attention(*x, 3, D ** -0.5, p), (q, k, v),
+                             torch.randn(1, H, 40, D, device=cuda)):
+            assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+
+
+def lap_problems(n_problems, N, seed, device):
+    """Costs from matching-like values with ties (rounded to 0.25), 0..N
+    valid rows, BIG_COST rows for the padding."""
+    rng = np.random.RandomState(seed)
+    cost = np.round(rng.rand(n_problems, N, N) * 40) / 4
+    n_valid = rng.randint(0, N + 1, n_problems)
+    valid = np.arange(N)[None] < n_valid[:, None]
+    cost = np.where(valid[..., None], cost, 1e6).astype(np.float32)
+    return (torch.from_numpy(cost).to(device), torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.parametrize("N", [50, 7, 64])
+def test_lap_kernel_is_bit_identical(cuda, N):
+    cost, valid = lap_problems(528, N, N, cuda)
+    before = lap_solve.launches
+    got = lap_solve(cost, valid)
+    assert lap_solve.launches == before + 1
+    want = lap_solve_plain(cost.cpu(), valid.cpu())
+    assert torch.equal(got.cpu(), want)

@@ -1,7 +1,8 @@
 """monodetr_torch eval path and guards: decode against the JAX package,
-the checkpoint conversion round trip, the smoke's model dict, the CLI on
-the synthetic KITTI fixture (no jax imported), and chip_smoke.py refusing
-to run without a CUDA card."""
+the checkpoint conversion round trip, the smoke's model dict, the KITTI AP
+evaluation against the JAX dataset's, the CLI (evaluation and one epoch of
+training) on the synthetic KITTI fixture (no jax imported), and
+chip_smoke.py refusing to run without a CUDA card."""
 
 import os
 import pickle
@@ -19,6 +20,7 @@ import jax.numpy as jnp
 sys.path.insert(0, "tools")
 from convert_checkpoint import convert_state_dict  # noqa: E402
 
+from monodetr_tpu.data import KITTIDataset  # noqa: E402
 from monodetr_tpu.data.kitti_utils import Calibration  # noqa: E402
 from monodetr_tpu.eval import decode as jax_decode  # noqa: E402
 from monodetr_torch.config import MONODETR_MODEL  # noqa: E402
@@ -111,8 +113,12 @@ def test_tester_loads_a_jax_checkpoint(tmp_path):
     with open(run_dir / "checkpoint_best.pth", "wb") as f:
         pickle.dump({"epoch": 1, "model_state": tree}, f)
 
+    kitti = make_synthetic_kitti(str(tmp_path / "kitti"), n_train=0, n_val=2, seed=3)
+
     class Loader:
-        dataset = type("D", (), {"cls_mean_size": np.zeros((3, 3))})
+        dataset = type("D", (), {"cls_mean_size": np.zeros((3, 3)),
+                                 "label_dir": os.path.join(kitti, "training", "label_2"),
+                                 "idx_list": ["000000", "000001"], "writelist": ["Car"]})
 
         def __iter__(self):
             rng = np.random.RandomState(0)
@@ -130,16 +136,45 @@ def test_tester_loads_a_jax_checkpoint(tmp_path):
         tester = torch_tester.Tester({"threshold": 0.0}, model, Loader(),
                                      logging.getLogger("t"), {"save_path": "outputs/"}, "m",
                                      device="cpu")
-        results = tester.test()
+        results = tester.test()  # inference, then the AP evaluation
         assert sorted(os.listdir(tester.results_dir)) == ["000000.txt", "000001.txt"]
-        with pytest.raises(NotImplementedError, match="jax"):
-            tester.evaluate()
+        assert 0.0 <= tester.evaluate() <= 100.0
     finally:
         os.chdir(cwd)
     for k, v in src.state_dict().items():
         if "running" not in k and ".bn" not in k and "downsample.1" not in k:
             torch.testing.assert_close(model.state_dict()[k], v)
     assert all(len(r) == 50 for r in results.values())
+
+
+def test_evaluate_matches_the_jax_dataset_eval(tmp_path):
+    """Car moderate AP3D_R40 of the same result txts (the labels, jittered
+    and scored, plus a false positive) by the port's evaluator and by
+    monodetr_tpu's KITTIDataset.eval."""
+    import logging
+
+    root = make_synthetic_kitti(str(tmp_path / "kitti"), n_train=1, n_val=4, seed=5)
+    ds = KITTIDataset("val", {"root_dir": root, "writelist": ["Car"]})
+    out = tmp_path / "results"
+    out.mkdir()
+    rng = np.random.RandomState(0)
+    for idx in ds.idx_list:
+        rows = []
+        with open(os.path.join(ds.label_dir, idx + ".txt")) as f:
+            for line in f.read().splitlines():
+                v = line.split()
+                nums = np.array(v[4:15], np.float64)
+                nums[:4] += rng.randn(4) * 0.5  # 2-D box, px
+                nums[8:11] += rng.randn(3) * 0.05  # 3-D location, m
+                rows.append(" ".join(v[:4] + ["%.2f" % x for x in nums]
+                                     + ["%.4f" % rng.rand()]))
+        rows.append("Car 0.00 0 0.0 100.0 150.0 200.0 250.0 1.5 1.6 3.9 2.0 1.6 20.0 0.1 0.9")
+        (out / (idx + ".txt")).write_text("\n".join(rows) + "\n")
+    log = logging.getLogger("t")
+    want = ds.eval(results_dir=str(out), logger=log)
+    got = torch_tester.kitti_eval(str(out), ds.label_dir, ds.idx_list, ds.writelist, log)
+    assert 0.0 < want < 100.0
+    assert got == want
 
 
 def _run(args, cwd, env=None):
@@ -158,7 +193,8 @@ def test_cli_evaluate_only_writes_kitti_txts_without_jax(tmp_path):
     with open(tmp_path / "tiny.yaml", "w") as f:
         yaml.safe_dump(cfg, f)
     tool = os.path.join(REPO, "tools", "train_val_torch.py")
-    code = ("import runpy, sys; sys.argv = [%r, '--config', 'tiny.yaml', '-e']; "
+    code = ("import runpy, sys; sys.argv = [%r, '--config', 'tiny.yaml', '-e', "
+            "'--device', 'cpu']; "
             "runpy.run_path(%r, run_name='__main__'); "
             "print('jax imported:', 'jax' in sys.modules)" % (tool, tool))
     proc = _run(["-c", code], tmp_path)
@@ -169,8 +205,41 @@ def test_cli_evaluate_only_writes_kitti_txts_without_jax(tmp_path):
     rows = (tmp_path / "outputs" / "smoke" / "outputs" / "data" / txts[0]).read_text()
     assert len(rows.splitlines()) == 50 and all(len(r.split()) == 16 for r in rows.splitlines())
 
-    proc = _run([tool, "--config", "tiny.yaml"], tmp_path)  # training: not ported
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    # the default device is the CUDA card; without one the CLI refuses to
+    # run rather than fall back to the CPU
+    proc = _run([tool, "--config", "tiny.yaml", "-e"], tmp_path,
+                dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+def test_cli_trains_one_epoch_without_jax(tmp_path):
+    """One epoch of 2 batches of the TINY model at 320x128 on the CPU: a
+    checkpoint in the JAX format, the in-loop and final evaluation, no jax."""
+    make_synthetic_kitti(str(tmp_path / "kitti"), n_train=4, n_val=2, seed=8)
+    with open(os.path.join(REPO, "configs", "monodetr.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"].update(root_dir=str(tmp_path / "kitti"), batch_size=2, resolution=[320, 128])
+    cfg["model"].update(TINY)
+    cfg["model_name"] = "train_smoke"
+    cfg["trainer"]["max_epoch"] = 1
+    with open(tmp_path / "tiny.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    tool = os.path.join(REPO, "tools", "train_val_torch.py")
+    code = ("import runpy, sys; sys.argv = [%r, '--config', 'tiny.yaml', '--device', 'cpu']; "
+            "runpy.run_path(%r, run_name='__main__'); "
+            "print('jax imported:', 'jax' in sys.modules)" % (tool, tool))
+    proc = _run(["-c", code], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "jax imported: False" in proc.stdout
+    run_dir = tmp_path / "outputs" / "train_smoke"
+    with open(run_dir / "checkpoint.pth", "rb") as f:
+        state = pickle.load(f)
+    assert state["epoch"] == 1 and state["optimizer_state"]["step"] == 2
+    tree = state["model_state"]["params"]
+    assert tree["transformer"]["encoder_layer_0"]["ffn"]["linear1"]["kernel"].shape == (256, 256)
+    log = "".join(p.read_text() for p in run_dir.glob("train.log.*"))
+    assert "epoch 0 batch 0 | loss_detr" in log and "img/s" in log and "Best Result" in log
+    assert len(os.listdir(run_dir / "outputs" / "data")) == 2
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -1,13 +1,17 @@
 """Command-line entry point of monodetr_torch, with the flags of tools/train_val.py.
 
-    python tools/train_val_torch.py --config configs/monodetr.yaml -e
+    python tools/train_val_torch.py --config configs/monodetr.yaml        # train
+    python tools/train_val_torch.py --config configs/monodetr.yaml -e     # evaluate
 
-`-e` evaluates: builds the model from the config's `model:` section
-(seeded from `random_seed`), loads the tester's checkpoint if one is on
-disk (a JAX-package checkpoint, converted), runs inference over the
-`test_split` of the dataset and writes KITTI txt files under
-<save_path>/<model_name>/outputs/data.  It runs on the CUDA card when one
-is present and on the CPU otherwise.  Training is not ported yet.
+Both build the model from the config's `model:` section, seeded from
+`random_seed`, on `--device` (default `cuda`; no CUDA card is an error,
+never a quiet move to the CPU).  Training keeps f32 parameters and runs
+the forward in the config's compute dtype; it saves JAX-format
+checkpoints under <save_path>/<model_name>/ and evaluates every
+`save_frequency` epochs unless the test split is `test`, then evaluates
+the best checkpoint.  `-e` loads the tester's checkpoint if one is on disk
+(a checkpoint of either package), writes KITTI txt files under
+<save_path>/<model_name>/outputs/data and evaluates them.
 """
 
 import argparse
@@ -20,7 +24,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import torch  # noqa: E402
 
 from monodetr_torch.eval.tester import Tester  # noqa: E402
+from monodetr_torch.models.criterion import SetCriterion  # noqa: E402
 from monodetr_torch.models.monodetr import build_monodetr, compute_dtype  # noqa: E402
+from monodetr_torch.train.trainer import Trainer  # noqa: E402
 from monodetr_tpu.config import load_config  # noqa: E402
 from monodetr_tpu.data import build_dataloader  # noqa: E402
 from monodetr_tpu.utils.misc import create_logger, set_random_seed  # noqa: E402
@@ -31,13 +37,14 @@ def main(argv=None):
     parser.add_argument("--config", dest="config", required=True, help="settings in yaml format")
     parser.add_argument("-e", "--evaluate_only", action="store_true",
                         help="evaluate model on validation set")
+    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    if not args.evaluate_only:
-        raise NotImplementedError(
-            "training is not ported to monodetr_torch yet (ROADMAP.md A7-A8); "
-            "run with -e to evaluate")
     if not os.path.exists(args.config):
         raise FileNotFoundError(args.config)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
     cfg = load_config(args.config)
     seed = cfg.get("random_seed", 444)
     set_random_seed(seed)
@@ -45,19 +52,45 @@ def main(argv=None):
     model_name = cfg["model_name"]
     output_path = os.path.join("./" + cfg["trainer"].get("save_path", "outputs/"), model_name)
     os.makedirs(output_path, exist_ok=True)
-    logger = create_logger(os.path.join(
-        output_path, "eval.log.%s" % datetime.datetime.now().strftime("%Y%m%d_%H%M%S")))
+    logger = create_logger(os.path.join(output_path, "%s.log.%s" % (
+        "eval" if args.evaluate_only else "train",
+        datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))))
+    logger.info("device: %s" % (torch.cuda.get_device_name(device) if device.type == "cuda"
+                                else device.type))
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    logger.info("device: %s" % (torch.cuda.get_device_name(0) if device == "cuda" else "cpu"))
-    _, test_loader = build_dataloader(cfg["dataset"])
-    model = build_monodetr(cfg["model"], seed=seed).to(device, compute_dtype(cfg["model"]))
+    train_loader, test_loader = build_dataloader(cfg["dataset"])
+    dtype = compute_dtype(cfg["model"])
+    model = build_monodetr(cfg["model"], seed=seed)
     logger.info("model params: %.2fM" % (sum(p.numel() for p in model.parameters()) / 1e6))
 
-    logger.info("###################  Evaluation Only  ##################")
+    if args.evaluate_only:
+        logger.info("###################  Evaluation Only  ##################")
+        tester = Tester(cfg=cfg["tester"], model=model.to(device, dtype), dataloader=test_loader,
+                        logger=logger, train_cfg=cfg["trainer"], model_name=model_name,
+                        device=device)
+        tester.test()
+        return
+
+    model = model.to(device)  # f32 parameters; the forward runs in `dtype`
     tester = Tester(cfg=cfg["tester"], model=model, dataloader=test_loader, logger=logger,
                     train_cfg=cfg["trainer"], model_name=model_name, device=device)
-    tester.test()
+    trainer = Trainer(
+        cfg=cfg["trainer"], model=model, criterion=SetCriterion(cfg["model"]),
+        train_loader=train_loader, lr_cfg=cfg["lr_scheduler"],
+        optim_cfg=cfg["optimizer"], logger=logger, model_name=model_name,
+        tester=tester if cfg["dataset"]["test_split"] != "test" else None,
+        device=device, compute_dtype=dtype, seed=seed)
+
+    logger.info("###################  Training  ##################")
+    logger.info("Batch Size: %d" % (cfg["dataset"]["batch_size"]))
+    logger.info("Learning Rate: %f" % (cfg["optimizer"]["lr"]))
+    trainer.train()
+
+    if cfg["dataset"]["test_split"] == "test":
+        return
+    logger.info("###################  Evaluation  ##################")
+    with torch.autocast(device.type, dtype=dtype, enabled=dtype != torch.float32):
+        tester.test()
 
 
 if __name__ == "__main__":
