@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 `library()` compiles every `csrc/*.cu` into one shared library with a plain C
-interface (nvcc, `sm_90a`), at first use, into `build/monodetr_torch/<hash>/`
+interface (nvcc, `sm_90a`; one compiler process per source, run together,
+then one link), at first use, into `build/monodetr_torch/<hash>/`
 beside the package; the hash covers the sources and the flags, so an edited
 kernel is rebuilt and an unchanged one is loaded from disk.  The library is
 bound with ctypes: every pointer and the CUDA stream pass as `c_void_p`, and
@@ -25,7 +26,7 @@ BUILD_ROOT = PKG_DIR.parent / "build" / "monodetr_torch"
 LIB_NAME = "libmonodetr_kernels.so"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,12 @@ SIGNATURES = {
     "mdt_msda_enc_fused_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _F, _P),
     "mdt_msda_sep": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "mdt_msda_sep_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
+    "mdt_msda_pallas": (_P,) * 5 + (_I,) * 7 + (_P, _P),
+    "mdt_msda_pallas_bwd": (_P,) * 9 + (_I,) * 7 + (_P, _P),
+    "mdt_msda_sepwin": (_P,) * 4 + (_I,) * 7 + (_P, _F, _P),
+    "mdt_msda_sepwin_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _F, _P),
+    "mdt_msda_dense_fused": (_P,) * 4 + (_I,) * 8 + (_P, _P),
+    "mdt_msda_dense_fused_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
     "mdt_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_F, _P, _U, _P),
     "mdt_attention_bwd": (_P,) * 10 + (_I,) * 5 + (_F, _P, _U, _P),
     "mdt_attention_keep_mask": (_P, _I, _I, _I, _P, _U, _P),
@@ -73,27 +80,37 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path.  Each build writes a temporary file and renames it
-    into place, so concurrent builds never load a half-written library."""
+    the library's path.  Each build works in a temporary directory and
+    renames the library into place, so concurrent builds never load a
+    half-written library."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"monodetr_torch: nvcc failed ({proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        # one nvcc per source, all at once, then one link
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(work / (src.stem + ".o"))]
+                for src in sorted(SRC_DIR.glob("*.cu"))]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in logs):
+            link = [nvcc, "-shared", "-o", str(work / LIB_NAME), *[c[-1] for c in cmds]]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            logs.append((link, proc.stdout, proc.returncode))
+        (out_dir / "build.log").write_text(
+            "".join(" ".join(c) + "\n" + out for c, out, _ in logs))
+        failed = [(c, out, rc) for c, out, rc in logs if rc != 0]
+        if failed:
+            c, out, rc = failed[0]
+            raise RuntimeError(f"monodetr_torch: {' '.join(c)} failed ({rc}):\n{out[-4000:]}")
+        os.replace(work / LIB_NAME, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -40,6 +40,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The MSDA kernels run one warp per (batch, query, head) in blocks of 8
+// warps: with H = 8 a block is the 8 heads of one query.
+constexpr int kWarpsPerBlock = 8;
+
+inline unsigned blocks_for_warps(int64_t warps) {
+  return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
 // Multi-scale value pyramid: level l holds h[l] x w[l] tokens starting at
 // token start[l] of the flattened [S] axis.
 struct Levels {
@@ -60,6 +68,28 @@ inline Levels make_levels(int L, const int* hw) {
     s += lv.h[l] * lv.w[l];
   }
   return lv;
+}
+
+// Grid query q of the level-major flattening sits at pixel (gx, gy) of
+// level lq (the encoder's queries are the pixel grid of every level).
+struct GridPos {
+  int lq, gx, gy;
+};
+
+__device__ __forceinline__ GridPos grid_pos(int q, const Levels& lv) {
+  int lq = 0;
+  while (lq + 1 < lv.n && q >= lv.start[lq + 1]) ++lq;
+  const int r = q - lv.start[lq];
+  const int gy = r / lv.w[lq];
+  return GridPos{lq, r - gy * lv.w[lq], gy};
+}
+
+// Where that query's centre falls in level l's pixel coordinates,
+// (g + 0.5) * size_l / size_lq - 0.5, rounded once to f32 as the host's
+// tables (ops/msda_enc.py:grid_centers) are.
+__device__ __forceinline__ float2 grid_centre(const GridPos& g, const Levels& lv, int l) {
+  return make_float2((float)(((double)g.gx + 0.5) * lv.w[l] / lv.w[g.lq] - 0.5),
+                     (float)(((double)g.gy + 0.5) * lv.h[l] / lv.h[g.lq] - 0.5));
 }
 
 // Weighted sum of L*P bilinear samples of one head, computed by one warp.
@@ -104,7 +134,7 @@ __device__ __forceinline__ float sample_heads_sum(const T* __restrict__ v, int64
 // Backward of sample_heads_sum, by the same warp layout.  `g` is lane d's
 // channel of the output gradient.  For each sample j, adds
 // att_j * (corner weight) * g_d to the f32 value gradient `gv` (laid out as
-// `v`) by atomics, and leaves in lane j:
+// `v`) by atomics, unless `gv` is null, and leaves in lane j:
 //   gatt = sum_d g_d * sample_j[d],
 //   gx, gy = att_j * sum_d g_d * d sample_j[d] / d(x, y).
 // The derivative is the one-sided bilinear one at x0 = floor(x) (the
@@ -146,7 +176,7 @@ __device__ __forceinline__ void sample_heads_bwd(const T* __restrict__ v, float*
       gy = a * sy;
     }
     const float ga = a * g;
-    if (a != 0.f) {  // a is the same in every lane: the branch is uniform
+    if (gv != nullptr && a != 0.f) {  // the same in every lane: the branch is uniform
       if (vy0 && vx0) atomicAdd(gv + i00, ga * (1.f - lx) * (1.f - ly));
       if (vy0 && vx1) atomicAdd(gv + i01, ga * lx * (1.f - ly));
       if (vy1 && vx0) atomicAdd(gv + i10, ga * (1.f - lx) * ly);

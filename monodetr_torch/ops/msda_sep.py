@@ -13,7 +13,7 @@ from .. import _build
 from .msda import ms_deform_attn
 
 
-def _check(name, value, spatial_shapes, sampling_locations, attention_weights):
+def check_loc_args(name, value, spatial_shapes, sampling_locations, attention_weights):
     _build.require_cuda(name, value, sampling_locations, attention_weights)
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
@@ -33,8 +33,8 @@ def _check(name, value, spatial_shapes, sampling_locations, attention_weights):
 
 
 def _launch_fwd(value, spatial_shapes, sampling_locations, attention_weights):
-    B, S, Q, H, D, L, P = _check("ms_deform_attn_sep", value, spatial_shapes,
-                                 sampling_locations, attention_weights)
+    B, S, Q, H, D, L, P = check_loc_args("ms_deform_attn_sep", value, spatial_shapes,
+                                         sampling_locations, attention_weights)
     out = torch.empty(B, Q, H * D, dtype=value.dtype, device=value.device)
     _build.launch(
         "mdt_msda_sep", value.data_ptr(), sampling_locations.data_ptr(),
@@ -51,8 +51,8 @@ def ms_deform_attn_sep_bwd(value, spatial_shapes, sampling_locations,
     tensors: (dvalue in value's dtype, dloc f32, dattn f32) for the output
     gradient `gout` [B, Q, H*D].  dvalue is summed in f32 by atomics."""
     name = "ms_deform_attn_sep_bwd"
-    B, S, Q, H, D, L, P = _check(name, value, spatial_shapes,
-                                 sampling_locations, attention_weights)
+    B, S, Q, H, D, L, P = check_loc_args(name, value, spatial_shapes,
+                                         sampling_locations, attention_weights)
     gout = gout.contiguous()
     if gout.shape != (B, Q, H * D) or gout.dtype != value.dtype:
         raise ValueError(f"{name}: gout {tuple(gout.shape)} {gout.dtype}")

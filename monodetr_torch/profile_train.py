@@ -1,9 +1,11 @@
 """Device-time breakdown of the monodetr_torch training step on one CUDA card.
 
     python -m monodetr_torch.profile_train [--batch 16] [--steps 3] [--out outputs/profile]
+        [--msda-impl fused] [--dec-msda-impl sep]
 
 The shipped model (configs/monodetr.yaml, full width and depth, seeded
-random weights) trains on synthetic 384x1280 images and targets in bf16
+random weights; the two impl options switch its deformable attention to
+an opt-in path, e.g. pallas + dense_fused) trains on synthetic 384x1280 images and targets in bf16
 compute with f32 parameters and dropout 0.1 (train/synthetic.py).  After 3 warm-up steps, `--steps` steps run under
 torch.profiler.  Printed: ms/step by CUDA events, the device time per
 step of each group of kernels and of the top kernels, and the device's
@@ -29,7 +31,13 @@ from .train.train_step import batch_to_device, make_train_step
 GROUPS = (
     ("msda_enc_fused_bwd", "port: encoder MSDA bwd (kernel 1)"),
     ("msda_enc_fused", "port: encoder MSDA fwd (kernel 1)"),
-    ("msda_sep_bwd", "port: decoder MSDA bwd (kernel 2)"),
+    ("msda_pallas_bwd", "port: encoder MSDA bwd (kernel 5)"),
+    ("msda_pallas", "port: encoder MSDA fwd (kernel 5)"),
+    ("msda_sepwin_bwd", "port: encoder MSDA bwd (kernel 6)"),
+    ("msda_sepwin", "port: encoder MSDA fwd (kernel 6)"),
+    ("msda_dense_fused_bwd_value", "port: decoder MSDA bwd, value side (kernel 7)"),
+    ("msda_dense_fused", "port: decoder MSDA fwd (kernel 7)"),
+    ("msda_sep_bwd", "port: decoder MSDA bwd (kernel 2; kernel 7's query side)"),
     ("msda_sep", "port: decoder MSDA fwd (kernel 2)"),
     ("attention_bwd", "port: attention bwd (kernel 3)"),
     ("attention_fwd", "port: attention fwd (kernel 3)"),
@@ -70,14 +78,16 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--out", default="outputs/profile")
+    parser.add_argument("--msda-impl", default=MONODETR_MODEL["msda_impl"])
+    parser.add_argument("--dec-msda-impl", default=MONODETR_MODEL["dec_msda_impl"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train: needs a CUDA card")
 
-    model = build_monodetr(MONODETR_MODEL, seed=444).cuda()
+    cfg = dict(MONODETR_MODEL, msda_impl=args.msda_impl, dec_msda_impl=args.dec_msda_impl)
+    model = build_monodetr(cfg, seed=444).cuda()
     opt = build_optimizer({"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4}, model)
-    step = make_train_step(model, SetCriterion(MONODETR_MODEL), opt,
-                           compute_dtype(MONODETR_MODEL))
+    step = make_train_step(model, SetCriterion(cfg), opt, compute_dtype(cfg))
     gen = torch.Generator(device="cuda").manual_seed(0)
     batches = [batch_to_device(b, "cuda")
                for b, _ in SyntheticLoader(3 + args.steps, args.batch, 4)]
@@ -104,7 +114,8 @@ def main(argv=None):
         counts[group_of(e.name)] += 1
     busy = sum(by_group.values())
     n = args.steps
-    print(f"card: {torch.cuda.get_device_name(0)}; batch {args.batch}, 384x1280, bf16 compute")
+    print(f"card: {torch.cuda.get_device_name(0)}; batch {args.batch}, 384x1280, bf16 compute, "
+          f"msda_impl {args.msda_impl}, dec_msda_impl {args.dec_msda_impl}")
     print(f"profiled window: {window_ms / n:.1f} ms/step (CUDA events, under the profiler); "
           f"kernel time {busy / n:.1f} ms/step; device idle share {1 - busy / window_ms:.3f}; "
           f"{len(kernels) // n} kernels/step")

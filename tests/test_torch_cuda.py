@@ -9,7 +9,9 @@ plain MSDA re-normalising pixel positions for grid_sample), 3e-2 in bf16
 (outputs rounded to bf16 at values of order 1).  Gradients are compared as
 max |a - b| / (1 + max |b|): 1e-4 in f32 (the value gradients are summed by
 atomics in another order), 3e-2 in bf16.  The LAP kernel is bit-identical
-to its plain version.
+to its plain version.  Kernels 5-7 (the opt-in MSDA impls 'pallas',
+'sepwin' and 'dense_fused') are held to the same bounds, and kernel 7's
+value gradient, written without atomics, is bit-identical from run to run.
 """
 
 import numpy as np
@@ -17,13 +19,21 @@ import pytest
 import torch
 
 from monodetr_torch.models.monodetr import build_monodetr
+from monodetr_torch.models.transformer import encoder_reference_points
 from monodetr_torch.ops.attention import (attention_keep_mask, attention_plain,
                                           fused_attention, fused_attention_bwd)
 from monodetr_torch.ops.lap import lap_solve, lap_solve_plain
 from monodetr_torch.ops.msda import ms_deform_attn
 from monodetr_torch.ops.msda_enc import (ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd,
                                          ms_deform_attn_enc_fused_plain, window_limit)
+from monodetr_torch.ops.msda_dense import (ms_deform_attn_dense, ms_deform_attn_dense_fused,
+                                           ms_deform_attn_dense_fused_bwd)
+from monodetr_torch.ops.msda_pallas import (ms_deform_attn_pallas_packed,
+                                            ms_deform_attn_pallas_packed_bwd,
+                                            ms_deform_attn_pallas_packed_plain, pack)
 from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd
+from monodetr_torch.ops.msda_sepwin import ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd
+from monodetr_torch.ops.msda_windowed import ms_deform_attn_windowed
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -120,6 +130,147 @@ def test_model_forward_through_kernels(cuda):
     assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1]
     for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("enc,dec", [("pallas", "dense_fused"), ("sepwin", "sep")])
+def test_model_forward_through_optin_kernels(cuda, enc, dec):
+    """The opt-in configurations A (pallas + dense_fused) and B (sepwin +
+    sep) as test_model_forward_through_kernels checks the default."""
+    model = build_monodetr(dict(msda_impl=enc, msda_window=6, dec_msda_impl=dec,
+                                enc_layers=2, dec_layers=2), seed=0).to(cuda)
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.randn(2, 384, 1280, 3).astype(np.float32)).to(cuda)
+    calibs = torch.tensor([[700.0, 0, 600, 45], [0, 700, 170, 0], [0, 0, 1, 0]],
+                          device=cuda).expand(2, 3, 4)
+    sizes = torch.tensor([[1242.0, 375.0]], device=cuda).expand(2, 2)
+    counters = ({"pallas": ms_deform_attn_pallas_packed, "sepwin": ms_deform_attn_sepwin}[enc],
+                {"dense_fused": ms_deform_attn_dense_fused, "sep": ms_deform_attn_sep}[dec],
+                fused_attention)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        got = model(images, calibs, sizes)
+        want = model.use_plain_ops(True)(images, calibs, sizes)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1]
+    for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
+
+
+def window_case(shapes, B, dtype, seed, window=6):
+    """((value, loc, attn), gout) for grid queries: offsets odd multiples of
+    1/32 px, some up to 1 px beyond the window (clamped), so that every
+    sample sits >= 1/32 px from an integer and >= 0.02 px from the bound."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = sum(h * w for h, w in shapes)
+    lim = window_limit(window)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device="cuda")
+    grid = torch.from_numpy(encoder_reference_points(shapes)).cuda()[None, :, None, None, None]
+    off = (torch.rand(B, S, H, L, P, 2, generator=g, device="cuda") * 2 - 1) * (lim + 1)
+    loc = grid + (torch.floor(off * 16) * 2 + 1) / 32 / wh[:, None]
+    value = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    att = torch.softmax(torch.randn(B, S, H, L * P, generator=g, device="cuda"), -1)
+    gout = torch.randn(B, S, H * D, generator=g, device="cuda")
+    return (value, loc, att.view(B, S, H, L, P)), gout
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES])
+def test_windowed_kernels(cuda, dtype, tol, shapes):
+    """Kernel 5 (packed) and kernel 6 (sepwin) forward against their plain
+    versions."""
+    (value, loc, att), _ = window_case(shapes, 2, dtype, 4)
+    fx, fy, lanes = pack(shapes, loc, att, 6)
+    before = [ms_deform_attn_pallas_packed.launches, ms_deform_attn_sepwin.launches]
+    got = ms_deform_attn_pallas_packed(value, shapes, fx, fy, lanes, 6)
+    assert max_err(got, ms_deform_attn_pallas_packed_plain(value, shapes, fx, fy, lanes)) <= tol
+    got = ms_deform_attn_sepwin(value, shapes, loc, att, 6)
+    assert max_err(got, ms_deform_attn_windowed(value, shapes, loc, att, 6)) <= tol
+    assert [ms_deform_attn_pallas_packed.launches, ms_deform_attn_sepwin.launches] == [
+        b + 1 for b in before]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES])
+def test_windowed_backward_kernels(cuda, dtype, shapes):
+    (value, loc, att), g = window_case(shapes, 2, dtype, 5)
+    lanes = pack(shapes, loc, att, 6)
+    before = ms_deform_attn_pallas_packed_bwd.launches
+    got = grads_of(lambda *x: ms_deform_attn_pallas_packed(x[0], shapes, *x[1:], 6),
+                   (value, *lanes), g)
+    assert ms_deform_attn_pallas_packed_bwd.launches == before + 1
+    want = grads_of(lambda *x: ms_deform_attn_pallas_packed_plain(x[0], shapes, *x[1:]),
+                    (value, *lanes), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+    before = ms_deform_attn_sepwin_bwd.launches
+    got = grads_of(lambda *x: ms_deform_attn_sepwin(x[0], shapes, x[1], x[2], 6),
+                   (value, loc, att), g)
+    assert ms_deform_attn_sepwin_bwd.launches == before + 1
+    want = grads_of(lambda *x: ms_deform_attn_windowed(x[0], shapes, x[1], x[2], 6),
+                    (value, loc, att), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+    clamped = (got[1] == 0) & (want[1] == 0)
+    assert clamped.any() and not clamped.all()  # some positions were clamped
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("q", [1, 50, 550])
+def test_dense_fused_kernel(cuda, dtype, tol, q):
+    rng = np.random.RandomState(q + 1)
+    S = sum(h * w for h, w in FULL_SHAPES)
+    value = torch.from_numpy(rng.randn(2, S, H, D).astype(np.float32)).to(cuda, dtype)
+    loc = torch.from_numpy(rng.rand(2, q, H, L, P, 2).astype(np.float32) * 1.4 - 0.2).to(cuda)
+    att = torch.softmax(torch.from_numpy(rng.randn(2, q, H, L * P).astype(np.float32)), -1)
+    att = att.view(2, q, H, L, P).to(cuda)
+    got = ms_deform_attn_dense_fused(value, FULL_SHAPES, loc, att)
+    assert max_err(got, ms_deform_attn_dense(value, FULL_SHAPES, loc, att)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q", [50, 550])
+def test_dense_fused_backward_kernel(cuda, dtype, q):
+    """Kernel 7's scatter-free backward against autograd through the plain
+    version, and its value gradient bit-identical across two runs."""
+    gen = torch.Generator(device="cuda").manual_seed(q + 1)
+    S = sum(h * w for h, w in FULL_SHAPES)
+    value = torch.randn(2, S, H, D, generator=gen, device="cuda").to(dtype)
+    loc = sep_locations((2, q, H, L, P), FULL_SHAPES, gen)
+    att = torch.softmax(torch.randn(2, q, H, L * P, generator=gen, device="cuda"), -1)
+    att = att.view(2, q, H, L, P)
+    g = torch.randn(2, q, H * D, generator=gen, device="cuda")
+    before = ms_deform_attn_dense_fused_bwd.launches
+    got = grads_of(lambda *x: ms_deform_attn_dense_fused(x[0], FULL_SHAPES, x[1], x[2]),
+                   (value, loc, att), g)
+    assert ms_deform_attn_dense_fused_bwd.launches == before + 1
+    want = grads_of(lambda *x: ms_deform_attn_dense(x[0], FULL_SHAPES, x[1], x[2]),
+                    (value, loc, att), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+    assert got[0].dtype == dtype
+    gout = g.to(dtype)
+    runs = [ms_deform_attn_dense_fused_bwd(value, FULL_SHAPES, loc, att, gout)[0]
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_optin_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    (value, loc, att), _ = window_case(SHAPES, 1, torch.float32, 6)
+    fx, fy, lanes = pack(SHAPES, loc, att, 6)
+    with pytest.raises(TypeError):  # packed operands are f32
+        ms_deform_attn_pallas_packed(value, SHAPES, fx.bfloat16(), fy, lanes, 6)
+    with pytest.raises(ValueError):  # not contiguous
+        ms_deform_attn_pallas_packed(value, SHAPES, fx, fy.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), lanes, 6)
+    with pytest.raises(ValueError):  # on two devices
+        ms_deform_attn_pallas_packed(value, SHAPES, fx.cpu(), fy, lanes, 6)
+    with pytest.raises(ValueError):  # not grid queries
+        ms_deform_attn_sepwin(value, SHAPES, loc[:, :-1], att[:, :-1], 6)
+    with pytest.raises(TypeError):  # f32 locations
+        ms_deform_attn_sepwin(value, SHAPES, loc.double(), att, 6)
+    with pytest.raises(TypeError):
+        ms_deform_attn_dense_fused(value, SHAPES, loc, att.bfloat16())
+    with pytest.raises(TypeError):  # f32 or bf16 values
+        ms_deform_attn_dense_fused(value.half(), SHAPES, loc, att)
 
 
 def rel_err(got, want):
@@ -241,7 +392,7 @@ def test_attention_dropout_properties(cuda):
 
 
 def test_wrappers_pass_gradients_on_cuda(cuda):
-    """Every differentiable input of the three kernel wrappers receives a
+    """Every differentiable input of the six kernel wrappers receives a
     finite, non-zero gradient on the card."""
     (value, off, logits), g = enc_inputs(SHAPES, 1, torch.float32, 1)
     for grad in grads_of(lambda *x: ms_deform_attn_enc_fused(x[0], SHAPES, x[1], x[2], 6),
@@ -252,6 +403,16 @@ def test_wrappers_pass_gradients_on_cuda(cuda):
     att = torch.softmax(torch.randn(1, 7, H, L * P, device=cuda), -1).view(1, 7, H, L, P)
     for grad in grads_of(lambda *x: ms_deform_attn_sep(x[0], SHAPES, x[1], x[2]),
                          (value[:, :S], loc, att), torch.randn(1, 7, H * D, device=cuda)):
+        assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    for grad in grads_of(lambda *x: ms_deform_attn_dense_fused(x[0], SHAPES, x[1], x[2]),
+                         (value[:, :S], loc, att), torch.randn(1, 7, H * D, device=cuda)):
+        assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    (value, loc, att), g = window_case(SHAPES, 1, torch.float32, 2)
+    for grad in grads_of(lambda *x: ms_deform_attn_sepwin(x[0], SHAPES, x[1], x[2], 6),
+                         (value, loc, att), g):
+        assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    for grad in grads_of(lambda *x: ms_deform_attn_pallas_packed(x[0], SHAPES, *x[1:], 6),
+                         (value, *pack(SHAPES, loc, att, 6)), g):
         assert torch.isfinite(grad).all() and grad.abs().sum() > 0
     q, k, v = (torch.randn(1, H, 40, D, device=cuda) for _ in range(3))
     for p in (0.0, 0.1):

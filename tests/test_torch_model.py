@@ -8,8 +8,11 @@ convert_state_dict to a JAX tree; the port then loads that tree through
 params_from_jax.  Both packages thus run the same weights on the same
 numpy inputs.  128x256 input: the four levels (16,32), (8,16), (4,8),
 (2,4) halve exactly, as ms_deform_attn_windowed needs.  The JAX side runs
-msda_impl 'windowed' (the function of 'fused', with no interpret mode) and
-dec_msda_impl 'sep' (its XLA path on the CPU).
+msda_impl 'windowed' (the function of 'fused', 'pallas' and 'sepwin', with
+no interpret mode) and dec_msda_impl 'sep' or 'dense' (their XLA path on
+the CPU, the function of 'dense_fused').  Every MSDeformAttn impl is held
+against the JAX module at module level, and the state_dict made by
+params_from_jax loads into the model under every impl.
 
 Tolerances: rtol 1e-4, atol 1e-5 for a module; 1e-3 (rtol and atol) for the
 whole forward, through ResNet-50 and the inverse-sigmoid box refinement.
@@ -180,6 +183,100 @@ def test_msda_gather_impl(weights, ref_dim):
     close(got, want)
 
 
+def exact_offsets(rng, p, reach):
+    """The sampling_offsets params of p with a kernel of entries in
+    {-1/16, 0, 1/16} (mostly 0) and a bias of odd multiples of 1/32 within
+    +-reach: for a query in {-1, 0, 1} every offset is an odd multiple of
+    1/32 px, computed exactly by both packages.  At grid centres (multiples
+    of 1/16 px) or at reference points that are multiples of 1/32, no
+    sample then sits on an integer position, where the one-sided bilinear
+    derivative and the hat's -sign(0) = 0 differ, or within 0.02 px of the
+    window's bound (ROADMAP.md C3)."""
+    k = np.asarray(p["sampling_offsets"]["kernel"])
+    kernel = rng.choice([-1 / 16, 0.0, 1 / 16], p=[0.05, 0.9, 0.05], size=k.shape)
+    bias = (np.floor((rng.rand(k.shape[1]) * 2 - 1) * reach * 16) * 2 + 1) / 32
+    return dict(p, sampling_offsets={"kernel": kernel.astype(np.float32),
+                                     "bias": bias.astype(np.float32)})
+
+
+@pytest.fixture(scope="module")
+def msda_references(weights):
+    """The JAX side of test_msda_optin_impl, computed once per JAX impl:
+    {impl: (params, ref, query, value, g, output, (dparams, dquery, dvalue))}."""
+    params, _ = weights
+    refs = {}
+    for jax_impl in ("windowed", "dense"):
+        rng = np.random.RandomState(len(jax_impl))
+        if jax_impl == "windowed":  # the encoder's grid queries
+            Q, layer = S, params["transformer"]["encoder_layer_0"]["self_attn"]
+            ref = np.broadcast_to(encoder_reference_points(SHAPES)[None, :, None], (B, S, 4, 2))
+            p = exact_offsets(rng, layer, 1.99 + 1)  # inside and beyond the G = 6 window
+        else:  # decoder queries, some samples beyond [0, 1]
+            Q, layer = 30, params["transformer"]["decoder_layer_0"]["cross_attn"]
+            ref = rng.randint(-8, 40, (B, Q, 4, 2)) / 32
+            p = exact_offsets(rng, layer, 3)
+        ref = np.ascontiguousarray(ref, np.float32)
+        query = rng.randint(-1, 2, (B, Q, 256)).astype(np.float32)
+        value = rng.randn(B, S, 256).astype(np.float32)
+        g = rng.randn(B, Q, 256).astype(np.float32)
+        jm = JaxMSDA(impl=jax_impl, window=6)
+
+        def fwd_bwd(p, q, v, jm=jm, ref=ref, g=g):
+            out, vjp = jax.vjp(lambda *a: jm.apply({"params": a[0]}, a[1], ref, a[2], SHAPES),
+                               p, q, v)
+            return out, vjp(g)
+
+        refs[jax_impl] = (p, ref, query, value, g, *jax.jit(fwd_bwd)(p, query, value))
+    return refs
+
+
+@pytest.mark.parametrize("impl", ["pallas", "sepwin", "windowed", "dense", "dense_fused"])
+def test_msda_optin_impl(weights, msda_references, impl):
+    """MSDeformAttn(impl) against the JAX module on the same params, which
+    load from the state_dict that params_from_jax made: the windowed impls
+    against JAX 'windowed' on the encoder's grid queries, 'dense' and
+    'dense_fused' against JAX 'dense' on decoder queries.  Forward, and the
+    gradients of the inputs and of every parameter; a parameter's gradient
+    sums over up to B * S = 1360 tokens, so its atol is 1e-5 * max|grad|
+    (summation order)."""
+    _, model = weights
+    windowed = impl in ("pallas", "sepwin", "windowed")
+    p, ref, query, value, g, want, (want_p, want_q, want_v) = msda_references[
+        "windowed" if windowed else "dense"]
+    m = MSDeformAttn(impl=impl, window=6)
+    prefix = ("depthaware_transformer.encoder.layers.0.self_attn." if windowed
+              else "depthaware_transformer.decoder.layers.0.cross_attn.")
+    m.load_state_dict({k[len(prefix):]: v for k, v in model.state_dict().items()
+                       if k.startswith(prefix)})
+    with torch.no_grad():
+        m.sampling_offsets.weight.copy_(t(p["sampling_offsets"]["kernel"]).T)
+        m.sampling_offsets.bias.copy_(t(p["sampling_offsets"]["bias"]))
+    q_t, v_t = t(query).requires_grad_(True), t(value).requires_grad_(True)
+    got = m(q_t, t(ref), v_t, SHAPES)
+    (got * t(g)).sum().backward()
+    close(got.detach(), want)
+    close(q_t.grad, want_q)
+    close(v_t.grad, want_v)
+    for name in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+        lin = getattr(m, name)
+        for a, b in ((lin.weight.grad.T, want_p[name]["kernel"]),
+                     (lin.bias.grad, want_p[name]["bias"])):
+            close(a, b, atol=1e-5 * np.abs(np.asarray(b)).max())
+
+
+def test_one_state_dict_loads_into_every_impl(weights):
+    """The parameters keep the reference layout under every impl: the
+    state_dict that params_from_jax made loads, strictly, into the model
+    built with each encoder and decoder impl."""
+    _, model = weights
+    sd = model.state_dict()
+    for enc in ("gather", "fused", "pallas", "sepwin", "windowed"):
+        for dec in ("gather", "sep", "dense", "dense_fused"):
+            tm = build_monodetr(dict(CFG, msda_impl=enc, dec_msda_impl=dec))
+            tm.load_state_dict(sd)
+            assert tm.state_dict().keys() == sd.keys()
+
+
 def test_mlp_head(weights):
     params, model = weights
     x = np.random.RandomState(9).randn(B, 50, 256).astype(np.float32)
@@ -189,16 +286,30 @@ def test_mlp_head(weights):
     close(got, want)
 
 
-@pytest.mark.parametrize("impls", [("fused", "sep"), ("gather", "gather")])
-def test_eval_forward_matches_jax(weights, impls):
-    """The whole eval forward: port (impls) against JAX (windowed for
-    fused, else the same impls) on the same weights; tolerance 1e-3."""
+@pytest.fixture(scope="module")
+def jax_forwards():
+    """JAX eval forwards by (msda_impl, dec_msda_impl), each compiled once."""
+    return {}
+
+
+@pytest.mark.parametrize("impls", [("fused", "sep"), ("gather", "gather"),
+                                   ("pallas", "dense_fused"), ("sepwin", "dense"),
+                                   ("windowed", "sep")])
+def test_eval_forward_matches_jax(weights, jax_forwards, impls):
+    """The whole eval forward: port (impls) against JAX on the same
+    weights; tolerance 1e-3.  JAX runs 'windowed' for every windowed port
+    impl (the Pallas kernels have no fast CPU path) and 'dense' for
+    'dense_fused' (its own CPU path, msda_module.py:270)."""
     params, model = weights
     enc, dec = impls
-    jm = jax_build(dict(CFG, msda_impl="windowed" if enc == "fused" else enc,
-                        dec_msda_impl=dec))
+    jax_impls = ("windowed" if enc in ("fused", "pallas", "sepwin") else enc,
+                 "dense" if dec == "dense_fused" else dec)
     images, calibs, sizes = inputs()
-    want = jax.jit(lambda p: jm.apply({"params": p}, images, calibs, sizes, train=False))(params)
+    if jax_impls not in jax_forwards:
+        jm = jax_build(dict(CFG, msda_impl=jax_impls[0], dec_msda_impl=jax_impls[1]))
+        jax_forwards[jax_impls] = jax.jit(
+            lambda p: jm.apply({"params": p}, images, calibs, sizes, train=False))(params)
+    want = jax_forwards[jax_impls]
     tm = build_monodetr(dict(CFG, msda_impl=enc, dec_msda_impl=dec))
     tm.load_state_dict(model.state_dict())
     with torch.no_grad():

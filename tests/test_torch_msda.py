@@ -10,6 +10,9 @@ ms_deform_attn_sep and against ms_deform_attn_reference, with samples
 outside the maps.  Inputs stay off the clamp edge and off integer-aligned
 positions (ROADMAP.md C3).  Tolerance in f32: rtol 1e-4, atol 1e-5.  The
 kernels against their plain versions on the card: tests/test_torch_cuda.py.
+Every kernel wrapper, the opt-in ones of tests/test_torch_msda_optin.py
+included, counts only kernel launches and refuses a device that is neither
+the CPU nor a CUDA card.
 """
 
 import functools
@@ -25,8 +28,15 @@ from monodetr_tpu.ops.msda import ms_deform_attn_reference
 from monodetr_tpu.ops.msda_pallas import _center_positions
 from monodetr_tpu.ops.msda_sep_pallas import ms_deform_attn_sep as jax_msda_sep
 from monodetr_tpu.ops.msda_windowed import ms_deform_attn_windowed
-from monodetr_torch.ops.msda_enc import ms_deform_attn_enc_fused, window_limit
-from monodetr_torch.ops.msda_sep import ms_deform_attn_sep
+from monodetr_torch.models.transformer import encoder_reference_points
+from monodetr_torch.ops.msda_dense import (ms_deform_attn_dense_fused,
+                                           ms_deform_attn_dense_fused_bwd)
+from monodetr_torch.ops.msda_enc import (ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd,
+                                         window_limit)
+from monodetr_torch.ops.msda_pallas import (ms_deform_attn_pallas, ms_deform_attn_pallas_packed,
+                                            ms_deform_attn_pallas_packed_bwd)
+from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd
+from monodetr_torch.ops.msda_sepwin import ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd
 
 torch.set_num_threads(2)
 RTOL, ATOL = 1e-4, 1e-5
@@ -135,26 +145,47 @@ def test_sep_plain_matches_pallas_and_reference(oob):
 
 
 def test_wrappers_count_only_kernel_launches():
-    """On the CPU the wrappers run the plain versions and count nothing."""
+    """On the CPU the wrappers, forward and backward, run the plain
+    versions and count nothing."""
     rng = np.random.RandomState(30)
-    value, loc, att = sep_inputs(rng)
-    before = ms_deform_attn_sep.launches
-    ms_deform_attn_sep(torch.from_numpy(value), SEP_SHAPES, torch.from_numpy(loc),
-                       torch.from_numpy(att))
-    assert ms_deform_attn_sep.launches == before
+    counters = (ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd, ms_deform_attn_sep,
+                ms_deform_attn_sep_bwd, ms_deform_attn_dense_fused, ms_deform_attn_dense_fused_bwd,
+                ms_deform_attn_pallas_packed, ms_deform_attn_pallas_packed_bwd,
+                ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd)
+    before = [f.launches for f in counters]
+    value, loc, att = (torch.from_numpy(x).requires_grad_(True) for x in sep_inputs(rng))
+    for op in (ms_deform_attn_sep, ms_deform_attn_dense_fused):
+        op(value, SEP_SHAPES, loc, att).sum().backward()
+    value, off, logits = (torch.from_numpy(x).requires_grad_(True)
+                          for x in enc_inputs(rng, 6))
+    ms_deform_attn_enc_fused(value, ENC_SHAPES, off, logits, 6).sum().backward()
+    S = n_tokens(ENC_SHAPES)
+    grid = torch.from_numpy(encoder_reference_points(ENC_SHAPES))[None, :, None, None, None]
+    loc = (grid + torch.rand(2, S, H, L, P, 2) * 0.01).requires_grad_(True)
+    att = torch.full((2, S, H, L, P), 1.0 / (L * P), requires_grad=True)
+    ms_deform_attn_sepwin(value, ENC_SHAPES, loc, att, 6).sum().backward()
+    ms_deform_attn_pallas(value, ENC_SHAPES, loc, att, 6).sum().backward()
+    assert [f.launches for f in counters] == before
 
 
-@pytest.mark.parametrize("which", ["enc", "sep"])
+@pytest.mark.parametrize("which", ["enc", "sep", "pallas", "sepwin", "dense_fused"])
 def test_wrappers_never_fall_back_off_the_cpu(which):
     """A tensor that is on neither the CPU nor a CUDA card is refused, not
     handed to the plain version."""
     meta = torch.device("meta")
-    value = torch.empty(1, n_tokens(ENC_SHAPES), H, 32, device=meta)
-    with pytest.raises(ValueError):
+    S = n_tokens(ENC_SHAPES)
+    value = torch.empty(1, S, H, 32, device=meta)
+    loc = torch.empty(1, S, H, L, P, 2, device=meta)
+    att = torch.empty(1, S, H, L, P, device=meta)
+    with pytest.raises(ValueError, match="CUDA device"):
         if which == "enc":
-            S = value.shape[1]
             ms_deform_attn_enc_fused(value, ENC_SHAPES, torch.empty(1, S, 256, device=meta),
                                      torch.empty(1, S, 128, device=meta), 6)
+        elif which == "pallas":
+            lanes = [torch.empty(1, S, 128, device=meta) for _ in range(3)]
+            ms_deform_attn_pallas_packed(value, ENC_SHAPES, *lanes, 6)
+        elif which == "sepwin":
+            ms_deform_attn_sepwin(value, ENC_SHAPES, loc, att, 6)
         else:
-            ms_deform_attn_sep(value, ENC_SHAPES, torch.empty(1, 5, H, L, P, 2, device=meta),
-                               torch.empty(1, 5, H, L, P, device=meta))
+            op = ms_deform_attn_sep if which == "sep" else ms_deform_attn_dense_fused
+            op(value, ENC_SHAPES, loc[:, :5], att[:, :5])
