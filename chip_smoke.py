@@ -32,7 +32,16 @@ Phases, one line each (or a few), and any failure exits non-zero:
      value gradient bit-identical from run to run.
 The kernel report (JSON) sums each kernel's launches over the main-path
 runs of phases 5-7 and fails if one of them is 0; it is the second-to-last
-line.  The last line is {"ok": true, "device": {...}}.
+line.  Beside each kernel's time and its plain version's it gives the
+least time the card could take for the same work at the timed shape
+(`bound_ms`: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the peak rate of their type, `bound_by` says which) and,
+for attention, the time of F.scaled_dot_product_attention at the same
+shapes and dropout (`library_ms`, a yardstick the port never calls; null
+for the kernels that no single PyTorch call computes).  Attention is also
+timed, with the library, at the other dropout rate (forward at 0.1,
+backward at 0), which gives dropout's share of its time.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 import copy
@@ -44,6 +53,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -81,6 +91,16 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # gradients, max |a - b| / (1 + max |b|): f32 sums by atomics in another
 # order; bf16 rounds every input and output to 2^-8 relative
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): bytes/s of
+# device memory, f32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
+HBM_BYTES_S, F32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
+# the least f32 operations per (query, head, sample, channel) of the MSDA
+# functions: forward the 4 corner multiply-adds; backward the 4 dot products
+# of the output gradient with the corner values (the weight and both
+# position gradients follow per sample from those 4 sums) and the 4
+# multiply-adds of the value gradient
+MSDA_FLOPS = {"fwd": 8, "bwd": 16}
 
 KERNELS = {
     "msda_enc_fused": dict(
@@ -144,6 +164,33 @@ def cuda_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved, flops, flops_per_s):
+    """(ms, 'bytes' or 'operations'): the least time for the work, the larger
+    of its bytes over the memory rate and its operations over their peak."""
+    t_bytes = 1e3 * bytes_moved / HBM_BYTES_S
+    t_ops = 1e3 * flops / flops_per_s
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def msda_bound(direction, tensors, B, Q, lp=L * P):
+    """MSDA: every input read once and every output written once, and the
+    f32 operations of B * Q query rows x H heads x lp samples x D channels."""
+    return bound(nbytes(*tensors), MSDA_FLOPS[direction] * B * Q * H * lp * D, F32_FLOPS)
+
+
+def attention_bound(direction, q, k, bytes_moved):
+    """Attention: its products on the bf16 tensor cores, 2 B H Tq Tk D
+    operations each (forward Q K^T and P V; backward those and dP, dQ, dK,
+    dV: five), and the given bytes."""
+    B, Hh, Tq, Dd = q.shape
+    n = {"fwd": 2, "bwd": 5}[direction]
+    return bound(bytes_moved, 2 * n * B * Hh * Tq * k.shape[2] * Dd, BF16_TC_FLOPS)
 
 
 def reset_launches():
@@ -274,8 +321,29 @@ def phase_forward_kernels():
                 raise RuntimeError(f"{name} {tag} disagrees with its plain version")
         ms = cuda_ms(lambda: fn(*args))
         plain_ms = cuda_ms(lambda: forward_plain(name)(*args))
-        log(f"kernel {name} {tag}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        tensors = [a for a in args if isinstance(a, torch.Tensor)] + [got]
+        library_ms = None
+        if name == "attention_fwd":
+            q, k, v, _, scale, p = args
+            # q, k, v, o and the f32 log-sum-exp the kernel writes for the backward
+            bound_ms, bound_by = attention_bound(
+                "fwd", q, k, nbytes(*tensors) + q[..., 0].numel() * 4)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, dropout_p=p, scale=scale))
+            # dropout's share of the time: the same call at p = 0.1
+            seed = torch.tensor(0, device="cuda")
+            drop_ms = cuda_ms(lambda: fn(q, k, v, seed, scale, 0.1))
+            drop_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, dropout_p=0.1, scale=scale))
+            log(f"kernel attention_fwd {tag} 1920x1920 dropout 0.1: {drop_ms:.3f} ms, "
+                f"F.scaled_dot_product_attention {drop_lib_ms:.3f} ms")
+        else:
+            bound_ms, bound_by = msda_bound("fwd", tensors, B, got.shape[1])
+        log(f"kernel {name} {tag}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})" + (f", F.scaled_dot_product_attention {library_ms:.3f} ms"
+                               if library_ms is not None else ""))
+        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
     return report
 
 
@@ -386,8 +454,44 @@ def phase_backward_kernels():
         ms = cuda_ms(lambda: kernel(gout), iters=10)
         plain_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, gout, retain_graph=True),
                            iters=10)
-        log(f"kernel {name} bf16 B=16: {ms:.3f} ms, plain (autograd backward) {plain_ms:.3f} ms")
-        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        library_ms = None
+        if name == "attention_bwd":
+            q, k = inputs[:2]
+            # q, k, v, dO, dq, dk, dv, o, and lse and delta (f32 [B, H, Tq]):
+            # lse read, delta written and read
+            bound_ms, bound_by = attention_bound(
+                "bwd", q, k, nbytes(*inputs, gout, *got, q) + 3 * q[..., 0].numel() * 4)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*xs, dropout_p=0.1, scale=D ** -0.5)
+
+            library_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa(), xs, gout), iters=10)
+                          - cuda_ms(sdpa, iters=10))
+            # dropout's share of the time: the same backward at p = 0
+            scale = D ** -0.5
+            with torch.no_grad():
+                out0 = fused_attention(q, k, inputs[2], 0, scale, 0.0)
+            lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, -1)
+            nodrop_ms = cuda_ms(lambda: fused_attention_bwd(
+                q, k, inputs[2], out0, lse, gout, 0, scale, 0.0), iters=10)
+
+            def sdpa0():
+                return F.scaled_dot_product_attention(*xs, scale=scale)
+
+            nodrop_lib_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa0(), xs, gout), iters=10)
+                             - cuda_ms(sdpa0, iters=10))
+            log(f"kernel attention_bwd {tag} 550x1920 dropout 0: {nodrop_ms:.3f} ms, "
+                f"F.scaled_dot_product_attention forward+backward minus forward "
+                f"{nodrop_lib_ms:.3f} ms")
+            del out0, lse
+        else:
+            bound_ms, bound_by = msda_bound("bwd", [*inputs, gout, *got], B, gout.shape[1])
+        log(f"kernel {name} bf16 B=16: {ms:.3f} ms, plain (autograd backward) {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})"
+            + (f", F.scaled_dot_product_attention forward+backward minus forward "
+               f"{library_ms:.3f} ms" if library_ms is not None else ""))
+        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
         del kernel, plain, inputs, gout, got, xs, out, want
     return report
 
@@ -474,12 +578,17 @@ def phase_lap():
     ms = cuda_ms(lambda: lap_solve(cost_d, rv_d))
     plain_ms = cuda_ms(lambda: lap_solve_plain(cost_d, rv_d), iters=2)
     ok = same and worse == 0
+    # the cost rows, validity and assignment once; every valid row's N costs
+    # must be compared at least once (f32)
+    bound_ms, bound_by = bound(nbytes(cost_d, rv_d, got), 2 * int(n_valid.sum()) * N, F32_FLOPS)
     log(f"kernel lap 528 problems of 50x50, {int(ties.sum())} with ties: bit-identical to "
         f"lap_solve_plain {same}, costs above scipy's {worse} {'ok' if ok else 'FAIL'}; "
-        f"{ms:.3f} ms, plain (on the card) {plain_ms:.3f} ms")
+        f"{ms:.3f} ms, plain (on the card) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
     if not ok:
         raise RuntimeError("lap: the kernel disagrees with its plain version or scipy")
-    return {"lap": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)}
+    return {"lap": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None)}
 
 
 def main_path_counts(per_run, n_runs, label):

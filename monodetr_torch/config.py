@@ -1,4 +1,10 @@
-"""The shipped model as a Python dict.
+"""YAML config loading, and the shipped model as a Python dict.
+
+`load_config` reads a config of the reference's schema
+(`configs/monodetr.yaml`): one dict with `dataset` / `model` / `optimizer` /
+`lr_scheduler` / `trainer` / `tester` sections plus `random_seed` /
+`model_name`, passed down as plain dicts with defaults resolved at use
+sites (a copy of the JAX package's config.py).
 
 `MONODETR_MODEL` is the `model:` section of configs/monodetr.yaml as
 yaml.safe_load reads it (so `depth_min` stays the string '1e-3', which
@@ -25,3 +31,10 @@ MONODETR_MODEL = {
     "depth_loss_coef": 1, "depth_map_loss_coef": 1,
     "set_cost_class": 2, "set_cost_bbox": 5, "set_cost_giou": 2, "set_cost_3dcenter": 10,
 }
+
+
+def load_config(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)

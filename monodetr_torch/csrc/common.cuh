@@ -9,6 +9,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace mdt {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -40,8 +42,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The MSDA kernels run one warp per (batch, query, head) in blocks of 8
-// warps: with H = 8 a block is the 8 heads of one query.
+// Whether every pointer is 16-byte aligned (for 16-byte loads and copies).
+inline bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) & 15u) return false;
+  return true;
+}
+
+// MSDA kernels 2, 5, 6 and 7 run one warp per (batch, query, head) in
+// blocks of 8 warps: with H = 8 a block is the 8 heads of one query.
 constexpr int kWarpsPerBlock = 8;
 
 inline unsigned blocks_for_warps(int64_t warps) {

@@ -19,122 +19,380 @@
 // scatters nothing, as the TPU kernel's does not (see
 // msda_dense_fused_bwd_value_kernel below).
 //
-// All share one sampling core (common.cuh:sample_heads_sum): one warp per
-// (batch, query, head), lane = channel (D = 32), each bilinear corner one
-// coalesced 32-channel load, f32 accumulation.  The backward kernels use
-// the same layout (common.cuh:sample_heads_bwd): three warp sums per sample
-// give the weight and position gradients, and (kernel 7 apart) the value
-// gradient goes to an f32 buffer by one atomicAdd per valid corner and
-// channel.  At B=16
-// the encoder backward issues 16 * 10200 * 8 * 16 * 4 corner rows of 32
-// atomics per layer; they hit L2 in the same neighbourhoods as the forward's
-// loads.  A gather over the window's inverse map would need no atomics.
+// Kernels 2 and 7 share one sampling core (common.cuh:sample_heads_sum):
+// one warp per (batch, query, head), lane = channel (D = 32), each bilinear
+// corner one coalesced 32-channel load, f32 accumulation; their backward
+// (common.cuh:sample_heads_bwd) takes three warp sums per sample for the
+// weight and position gradients and (kernel 7 apart) adds the value
+// gradient to an f32 buffer by one atomicAdd per valid corner and channel.
+// Kernel 1, at 60x their work per step, has a layout of its own (below):
+// four threads per (b, q, h), 16-byte corner loads, vector atomics.
 //
-// What bounds them on the H100: gathers.  Each warp issues 4 * L * P = 64
-// corner loads of 64 B (bf16) or 128 B (f32); at B=16, S=10200 the encoder
-// kernel touches ~5 GB of corner rows per layer against ~0.3 GB of unique
-// input and output.  Neighbouring queries sample neighbouring pixels, and
-// the 8 warps of a block are the 8 heads of one query (together one 512 B
-// token row per corner), so the rows are served mostly from L1/L2; the
-// kernel is bound by L1/L2 load throughput, not by HBM or arithmetic.  The
-// TPU kernels' strip DMAs and hat-function matmuls existed because TPU
-// gathers are slow; on Hopper the plain gather is the fast path.
+// What bounds them on the H100: gathers.  At B=16, S=10200 kernel 1 reads
+// 16 * 10200 * 8 * 16 * 4 corner rows of 64 B (bf16), ~5 GB of corner rows
+// per layer against ~0.3 GB of unique input and output.  Neighbouring
+// queries sample neighbouring pixels, and a block holds all heads of its
+// queries (one 512 B token row per corner), so the rows are served mostly
+// from L1/L2: the kernels are bound by the L1/L2 load path (instructions
+// and bytes), not by HBM or arithmetic.  The TPU kernels' strip DMAs and
+// hat-function matmuls existed because TPU gathers are slow; on Hopper the
+// plain gather is the fast path.  Staging a query tile's value window in
+// shared memory (the Hopper analogue of the TPU strips) is the next step
+// if the L1 hit rate turns out to bound kernel 1.
 #include "common.cuh"
 
 namespace mdt {
 
-// Where one warp of kernel 1 samples: the query's level and pixel, and in
-// lane j < L*P sample j's softmaxed weight, raw offsets and clamped pixel
-// position.  The softmax uses the head's own maximum.
-struct EncSample {
-  float att, ox, oy, fx, fy;
+// Kernel 1 is laid out for Hopper's 16-byte loads: a quad of 4 threads per
+// (batch, query, head), thread s owning channels 8s .. 8s + 7, so one corner
+// of one sample is one 16-byte load per thread (bf16; two in f32), where a
+// warp per (b, q, h) issues 32 loads of 2 bytes.  A block is 64 quads: 8
+// consecutive queries of one batch item x 8 heads, whose sampling windows
+// overlap in L1.  Prologue: thread s reads logits and x/y offsets of samples
+// 4s .. 4s + 3 by vector loads; the head's max and sum take 2 quad shuffles
+// each (the head's own maximum, ROADMAP.md C2); each thread computes the
+// weight, clamp and pixel position of its 4 samples.  Sampling: the quad
+// shares the 16 samples by __shfl_sync, one at a time, and each thread
+// issues the sample's 4 corner loads before their FMAs.  The level table
+// is a __grid_constant__ parameter, indexed in place, so the kernels keep
+// no stack frame.  The backward has the same layout: gatt, gx and gy are
+// 8-channel partial dots plus 2 quad shuffles each, and dvalue goes to the
+// f32 gvalue by atomicAdd(float4*) (compute capability 9.x), 2 vector
+// atomics per corner and thread.
+constexpr int kEncQuads = 64;
+constexpr int kEncThreads = 4 * kEncQuads;
+
+// 8 channels of one token row, as loaded.
+template <typename T>
+struct Row8;
+template <>
+struct Row8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void get(float (&x)[8]) const {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Row8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void get(float (&x)[8]) const {
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  }
+};
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&x)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// Elements 0 .. n - 1 of p (4 when `vec`: one 8- or 16-byte load), zeros after.
+__device__ __forceinline__ void load4(const float* p, float (&x)[4], int n, bool vec) {
+  if (vec && n == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = u < n ? p[u] : 0.f;
+  }
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4], int n, bool vec) {
+  if (vec && n == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = u < n ? to_f32(p[u]) : 0.f;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&x)[4], int n) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < n) p[u] = from_f32<T>(x[u]);
+}
+
+// Thread s of the quad of (b, q, h): samples j = 4s + u (u < n), their
+// softmaxed weight and clamped pixel position, and in bit u (4 + u) of
+// `free` whether |x (y) offset| < lim, the backward's clamp mask.
+struct EncQuad {
+  int n;
+  unsigned free;
+  float att[4], fx[4], fy[4];
 };
 
 template <typename T>
-__device__ __forceinline__ EncSample enc_prologue(const T* __restrict__ off,
-                                                  const T* __restrict__ logits, int64_t bq,
-                                                  int q, int H, int h, const Levels& lv, int P,
-                                                  float lim, int lane) {
+__device__ __forceinline__ EncQuad enc_prologue(const T* __restrict__ off,
+                                                const T* __restrict__ logits, int64_t bq, int q,
+                                                int H, int h, const Levels& lv, int P, float lim,
+                                                int sub, unsigned qmask, bool vec) {
   const int LP = lv.n * P;
-  const GridPos gp = grid_pos(q, lv);
-
-  // lane j < L*P owns sample j = (level j / P, point j % P)
-  const bool mine = lane < LP;
   const int64_t nlog = (int64_t)H * LP;
-  float logit = -INFINITY;
-  EncSample e{0.f, 0.f, 0.f, 0.f, 0.f};
-  if (mine) {
-    logit = to_f32(logits[bq * nlog + h * LP + lane]);
-    e.ox = to_f32(off[bq * 2 * nlog + h * LP + lane]);
-    e.oy = to_f32(off[bq * 2 * nlog + nlog + h * LP + lane]);
+  EncQuad e;
+  e.n = min(max(LP - 4 * sub, 0), 4);
+  float lg[4], ox[4], oy[4];
+  load4(logits + bq * nlog + h * LP + 4 * sub, lg, e.n, vec);
+  load4(off + bq * 2 * nlog + h * LP + 4 * sub, ox, e.n, vec);
+  load4(off + bq * 2 * nlog + nlog + h * LP + 4 * sub, oy, e.n, vec);
+  float m = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) m = u < e.n ? fmaxf(m, lg[u]) : m;
+  m = fmaxf(m, __shfl_xor_sync(qmask, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(qmask, m, 2));  // this head's own maximum
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    e.att[u] = u < e.n ? expf(lg[u] - m) : 0.f;
+    sum += e.att[u];
   }
-  const float m = warp_max(logit);  // this head's own maximum
-  const float ex = mine ? expf(logit - m) : 0.f;
-  e.att = ex / warp_sum(ex);
-  if (mine) {
-    const float2 c = grid_centre(gp, lv, lane / P);
-    e.fx = c.x + fminf(fmaxf(e.ox, -lim), lim);
-    e.fy = c.y + fminf(fmaxf(e.oy, -lim), lim);
+  sum += __shfl_xor_sync(qmask, sum, 1);
+  sum += __shfl_xor_sync(qmask, sum, 2);
+  const GridPos gp = grid_pos(q, lv);
+  e.free = 0u;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    e.att[u] /= sum;
+    e.fx[u] = e.fy[u] = 0.f;
+    if (u < e.n) {
+      const float2 c = grid_centre(gp, lv, (4 * sub + u) / P);
+      e.fx[u] = c.x + fminf(fmaxf(ox[u], -lim), lim);
+      e.fy[u] = c.y + fminf(fmaxf(oy[u], -lim), lim);
+      e.free |= (fabsf(ox[u]) < lim ? 1u : 0u) << u | (fabsf(oy[u]) < lim ? 1u : 0u) << (4 + u);
+    }
   }
   return e;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-msda_enc_fused_kernel(const T* __restrict__ value, const T* __restrict__ off,
-                      const T* __restrict__ logits, T* __restrict__ out, int B, int S,
-                      int H, Levels lv, int P, float lim) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (int64_t)B * S * H) return;  // whole warps exit together
-  const int h = (int)(warp % H);
-  const int64_t bq = warp / H;  // b * S + q
-  const int q = (int)(bq % S);
-  const int b = (int)(bq / S);
-  const EncSample e = enc_prologue(off, logits, bq, q, H, h, lv, P, lim, lane);
+// The four corners k = 0 (x0, y0), 1 (x0 + 1, y0), 2 (x0, y0 + 1), 3 of a
+// sample at pixel (x, y) of a w-wide, h-high level: flat token index in the
+// level, bilinear weight, and in bit k of `ok` whether the corner lies in
+// the level (zero padding outside).
+struct Corners {
+  int i00, w;
+  float lx, ly;
+  unsigned ok;
+  __device__ __forceinline__ int index(int k) const { return i00 + (k & 1) + (k >> 1) * w; }
+  __device__ __forceinline__ float weight(int k) const {
+    return ((k & 1) ? lx : 1.f - lx) * ((k >> 1) ? ly : 1.f - ly);
+  }
+};
 
-  const int64_t row = (int64_t)H * 32;
-  const T* v = value + (int64_t)b * S * row + h * 32;
-  const float acc = sample_heads_sum(v, row, lv, P, e.att, e.fx, e.fy, lane);
-  out[bq * row + h * 32 + lane] = from_f32<T>(acc);
+__device__ __forceinline__ Corners corners(float x, float y, int hl, int wl) {
+  Corners c;
+  const float x0f = floorf(x), y0f = floorf(y);
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  c.lx = x - x0f;
+  c.ly = y - y0f;
+  c.w = wl;
+  c.i00 = y0 * wl + x0;
+  const bool vx0 = x0 >= 0 && x0 < wl, vx1 = x0 + 1 >= 0 && x0 + 1 < wl;
+  const bool vy0 = y0 >= 0 && y0 < hl, vy1 = y0 + 1 >= 0 && y0 + 1 < hl;
+  c.ok = (unsigned)(vy0 && vx0) | (unsigned)(vy0 && vx1) << 1 | (unsigned)(vy1 && vx0) << 2 |
+         (unsigned)(vy1 && vx1) << 3;
+  return c;
 }
 
-// Kernel 1 backward (replaces msda_enc_pallas.py _bwd_kernel).  Same warp
-// layout; the prologue is recomputed.  dvalue is accumulated by f32 atomics
-// into gvalue (zeroed by the caller); doff is the sampling derivative where
-// |off| < lim (the Pallas kernel's strict clamp mask, :471) and 0 where the
-// offset was clamped; dlogits goes through the head's softmax:
-// att * (gatt - sum(att * gatt)).
+// A thread loads a sample's 4 corners before it uses any of them.  More
+// samples in flight cost registers and so resident warps: at B = 16 the
+// bf16 forward took 1.66 ms with 4 samples in flight (168 registers, 8
+// warps per SM), 1.06 ms with 2 (106, 16 warps) and 0.90 ms with 1 (72,
+// 24 warps) on an H100 SXM at 700 W.
 template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kEncThreads, 3)
+msda_enc_fused_kernel(const T* __restrict__ value, const T* __restrict__ off,
+                      const T* __restrict__ logits, T* __restrict__ out, int B, int S, int H,
+                      const __grid_constant__ Levels lv, int P, float lim, bool vec) {
+  const int64_t quad = ((int64_t)blockIdx.x * kEncThreads + threadIdx.x) >> 2;
+  if (quad >= (int64_t)B * S * H) return;  // whole quads exit together
+  const int lane = threadIdx.x & 31, sub = lane & 3;
+  const unsigned qmask = 0xFu << (lane & ~3);
+  const int h = (int)(quad % H);
+  const int64_t bq = quad / H;  // b * S + q
+  const int q = (int)(bq % S);
+  const int b = (int)(bq / S);
+  const EncQuad e = enc_prologue(off, logits, bq, q, H, h, lv, P, lim, sub, qmask, vec);
+
+  const int64_t row = (int64_t)H * 32;
+  const T* vb = value + (int64_t)b * S * row + h * 32 + sub * 8;
+  const int LP = lv.n * P;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {  // sample j is held by thread j / 4 of the quad
+    if (j >= LP) break;
+    const int src = (lane & ~3) | (j >> 2);
+    const float a = __shfl_sync(qmask, e.att[j & 3], src);
+    const float x = __shfl_sync(qmask, e.fx[j & 3], src);
+    const float y = __shfl_sync(qmask, e.fy[j & 3], src);
+    const int l = j / P;
+    const Corners c = corners(x, y, lv.h[l], lv.w[l]);
+    const T* vl = vb + (int64_t)lv.start[l] * row;
+    Row8<T> v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if ((c.ok >> k) & 1u)
+        v[k].load(vl + (int64_t)c.index(k) * row);
+      else
+        v[k].zero();
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float xv[8];
+      v[k].get(xv);
+      const float w = a * c.weight(k);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) acc[d] = fmaf(w, xv[d], acc[d]);
+    }
+  }
+  store8(out + bq * row + h * 32 + sub * 8, acc);
+}
+
+// Kernel 1 backward (replaces msda_enc_pallas.py _bwd_kernel).  Same quad
+// layout; the prologue is recomputed.  dvalue is accumulated by f32 vector
+// atomics into gvalue (zeroed by the caller): the scalar weight of a corner
+// is the same in the whole quad, so for the atomics thread s adds to
+// channels 4s .. 4s + 3 and 16 + 4s .. 16 + 4s + 3 (whose output gradient
+// it loads once), and each atomic instruction of the quad covers 64
+// contiguous bytes.  doff is the sampling derivative where |off| < lim (the
+// Pallas kernel's strict clamp mask, :471) and 0 where the offset was
+// clamped; dlogits goes through the head's softmax: att * (gatt -
+// sum(att * gatt)).  The position derivative is the one-sided bilinear one
+// at x0 = floor(x) (F.grid_sample's backward): at an integer position it is
+// v[x0 + 1] - v[x0].
+template <typename T>
+__global__ void __launch_bounds__(kEncThreads, 2)
 msda_enc_fused_bwd_kernel(const T* __restrict__ value, const T* __restrict__ off,
                           const T* __restrict__ logits, const T* __restrict__ gout,
                           float* __restrict__ gvalue, T* __restrict__ goff,
-                          T* __restrict__ glogits, int B, int S, int H, Levels lv, int P,
-                          float lim) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (int64_t)B * S * H) return;
-  const int h = (int)(warp % H);
-  const int64_t bq = warp / H;
+                          T* __restrict__ glogits, int B, int S, int H,
+                          const __grid_constant__ Levels lv, int P, float lim, bool vec) {
+  const int64_t quad = ((int64_t)blockIdx.x * kEncThreads + threadIdx.x) >> 2;
+  if (quad >= (int64_t)B * S * H) return;
+  const int lane = threadIdx.x & 31, sub = lane & 3;
+  const unsigned qmask = 0xFu << (lane & ~3);
+  const int h = (int)(quad % H);
+  const int64_t bq = quad / H;
   const int q = (int)(bq % S);
   const int b = (int)(bq / S);
-  const int LP = lv.n * P;
-  const EncSample e = enc_prologue(off, logits, bq, q, H, h, lv, P, lim, lane);
+  const EncQuad e = enc_prologue(off, logits, bq, q, H, h, lv, P, lim, sub, qmask, vec);
 
   const int64_t row = (int64_t)H * 32;
-  const int64_t base = (int64_t)b * S * row + h * 32;
-  const float g = to_f32(gout[bq * row + h * 32 + lane]);
-  float gatt, gx, gy;
-  sample_heads_bwd(value + base, gvalue + base, row, lv, P, e.att, e.fx, e.fy, g, lane, gatt,
-                   gx, gy);
-  const float s = warp_sum(e.att * gatt);  // lanes >= L*P hold att = 0
-  if (lane < LP) {
-    const int64_t nlog = (int64_t)H * LP;
-    glogits[bq * nlog + h * LP + lane] = from_f32<T>(e.att * (gatt - s));
-    goff[bq * 2 * nlog + h * LP + lane] = from_f32<T>(fabsf(e.ox) < lim ? gx : 0.f);
-    goff[bq * 2 * nlog + nlog + h * LP + lane] = from_f32<T>(fabsf(e.oy) < lim ? gy : 0.f);
+  const T* vb = value + (int64_t)b * S * row + h * 32 + sub * 8;
+  float* gb = gvalue + (int64_t)b * S * row + h * 32 + sub * 4;
+  const T* gq = gout + bq * row + h * 32;
+  const int LP = lv.n * P;
+  float g[8], ga[8];  // channels 8s .. 8s + 7; 4s .. 4s + 3 and 16 + 4s .. 16 + 4s + 3
+  {
+    Row8<T> gr;
+    gr.load(gq + sub * 8);
+    gr.get(g);
+    float lo[4], hi[4];
+    load4(gq + sub * 4, lo, 4, true);
+    load4(gq + 16 + sub * 4, hi, 4, true);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) ga[d] = lo[d], ga[4 + d] = hi[d];
   }
+  float gatt[4] = {0.f, 0.f, 0.f, 0.f}, gx[4] = {0.f, 0.f, 0.f, 0.f}, gy[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j >= LP) break;
+    const int src = (lane & ~3) | (j >> 2);
+    const float a = __shfl_sync(qmask, e.att[j & 3], src);
+    const float x = __shfl_sync(qmask, e.fx[j & 3], src);
+    const float y = __shfl_sync(qmask, e.fy[j & 3], src);
+    const int l = j / P;
+    const Corners c = corners(x, y, lv.h[l], lv.w[l]);
+    const int64_t start = lv.start[l];
+    Row8<T> v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if ((c.ok >> k) & 1u)
+        v[k].load(vb + (start + c.index(k)) * row);
+      else
+        v[k].zero();
+    }
+    float v00[8], v01[8], v10[8], v11[8];
+    v[0].get(v00);
+    v[1].get(v01);
+    v[2].get(v10);
+    v[3].get(v11);
+    const float lx = c.lx, ly = c.ly;
+    float pa = 0.f, px = 0.f, py = 0.f;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      const float s = (1.f - ly) * ((1.f - lx) * v00[d] + lx * v01[d]) +
+                      ly * ((1.f - lx) * v10[d] + lx * v11[d]);
+      const float dx = (1.f - ly) * (v01[d] - v00[d]) + ly * (v11[d] - v10[d]);
+      const float dy = (1.f - lx) * (v10[d] - v00[d]) + lx * (v11[d] - v01[d]);
+      pa = fmaf(g[d], s, pa);
+      px = fmaf(g[d], dx, px);
+      py = fmaf(g[d], dy, py);
+    }
+#pragma unroll
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      pa += __shfl_xor_sync(qmask, pa, sh);
+      px += __shfl_xor_sync(qmask, px, sh);
+      py += __shfl_xor_sync(qmask, py, sh);
+    }
+    if (sub == (j >> 2)) {
+      gatt[j & 3] = pa;
+      gx[j & 3] = a * px;
+      gy[j & 3] = a * py;
+    }
+    if (a != 0.f) {  // the same in the whole quad
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!((c.ok >> k) & 1u)) continue;
+        const float wk = a * c.weight(k);
+        float* p = gb + (start + c.index(k)) * row;
+        atomicAdd(reinterpret_cast<float4*>(p),
+                  make_float4(wk * ga[0], wk * ga[1], wk * ga[2], wk * ga[3]));
+        atomicAdd(reinterpret_cast<float4*>(p + 16),
+                  make_float4(wk * ga[4], wk * ga[5], wk * ga[6], wk * ga[7]));
+      }
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) s += e.att[u] * gatt[u];  // att = 0 past n
+  s += __shfl_xor_sync(qmask, s, 1);
+  s += __shfl_xor_sync(qmask, s, 2);
+  float gl[4], gox[4], goy[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    gl[u] = e.att[u] * (gatt[u] - s);
+    gox[u] = (e.free >> u) & 1u ? gx[u] : 0.f;
+    goy[u] = (e.free >> (4 + u)) & 1u ? gy[u] : 0.f;
+  }
+  const int64_t nlog = (int64_t)H * LP;
+  store4(glogits + bq * nlog + h * LP + 4 * sub, gl, e.n);
+  store4(goff + bq * 2 * nlog + h * LP + 4 * sub, gox, e.n);
+  store4(goff + bq * 2 * nlog + nlog + h * LP + 4 * sub, goy, e.n);
 }
 
 // What lane j < L*P of the warp for (b, q, h) samples in kernels 2 and 7:
@@ -334,6 +592,17 @@ msda_dense_fused_bwd_value_kernel(const float* __restrict__ loc, const float* __
   for (int r = lo; r < hi; ++r) gv[r * row] = from_f32<T>(s_acc[(r - r0) * 32 + lane]);
 }
 
+inline unsigned enc_blocks(int64_t quads) {
+  return (unsigned)((quads + kEncQuads - 1) / kEncQuads);
+}
+
+// Whether a thread's 4 logits and offsets are one aligned vector load.
+inline bool enc_vec(int dtype, int LP, const void* off, const void* logits) {
+  const uintptr_t bytes = 4u * (dtype == kBF16 ? 2u : 4u);
+  return LP % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(off) | reinterpret_cast<uintptr_t>(logits)) % bytes) == 0;
+}
+
 }  // namespace mdt
 
 using namespace mdt;
@@ -346,20 +615,22 @@ extern "C" {
 int mdt_msda_enc_fused(void* value, void* off, void* logits, void* out, int dtype, int B,
                        int S, int H, int D, int L, int P, void* hw, float lim,
                        void* stream) {
-  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 32) return (int)cudaErrorInvalidValue;
+  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 16) return (int)cudaErrorInvalidValue;
+  if (!aligned16({value, out})) return (int)cudaErrorMisalignedAddress;
   const Levels lv = make_levels(L, static_cast<const int*>(hw));
-  const unsigned grid = blocks_for_warps((int64_t)B * S * H);
+  const unsigned grid = enc_blocks((int64_t)B * S * H);
   if (grid == 0) return 0;
+  const bool vec = enc_vec(dtype, L * P, off, logits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    msda_enc_fused_kernel<__nv_bfloat16><<<grid, kWarpsPerBlock * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(value), static_cast<const __nv_bfloat16*>(off),
-        static_cast<const __nv_bfloat16*>(logits), static_cast<__nv_bfloat16*>(out), B, S,
-        H, lv, P, lim);
+    using T = __nv_bfloat16;
+    msda_enc_fused_kernel<T><<<grid, kEncThreads, 0, st>>>(
+        static_cast<const T*>(value), static_cast<const T*>(off), static_cast<const T*>(logits),
+        static_cast<T*>(out), B, S, H, lv, P, lim, vec);
   } else if (dtype == kF32) {
-    msda_enc_fused_kernel<float><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+    msda_enc_fused_kernel<float><<<grid, kEncThreads, 0, st>>>(
         static_cast<const float*>(value), static_cast<const float*>(off),
-        static_cast<const float*>(logits), static_cast<float*>(out), B, S, H, lv, P, lim);
+        static_cast<const float*>(logits), static_cast<float*>(out), B, S, H, lv, P, lim, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -396,24 +667,26 @@ int mdt_msda_sep(void* value, void* loc, void* attn, void* out, int dtype, int B
 int mdt_msda_enc_fused_bwd(void* value, void* off, void* logits, void* gout, void* gvalue,
                            void* goff, void* glogits, int dtype, int B, int S, int H, int D,
                            int L, int P, void* hw, float lim, void* stream) {
-  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 32) return (int)cudaErrorInvalidValue;
+  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 16) return (int)cudaErrorInvalidValue;
+  if (!aligned16({value, gout, gvalue})) return (int)cudaErrorMisalignedAddress;
   const Levels lv = make_levels(L, static_cast<const int*>(hw));
-  const unsigned grid = blocks_for_warps((int64_t)B * S * H);
+  const unsigned grid = enc_blocks((int64_t)B * S * H);
   if (grid == 0) return 0;
+  const bool vec = enc_vec(dtype, L * P, off, logits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     using T = __nv_bfloat16;
-    msda_enc_fused_bwd_kernel<T><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+    msda_enc_fused_bwd_kernel<T><<<grid, kEncThreads, 0, st>>>(
         static_cast<const T*>(value), static_cast<const T*>(off),
         static_cast<const T*>(logits), static_cast<const T*>(gout),
         static_cast<float*>(gvalue), static_cast<T*>(goff), static_cast<T*>(glogits), B, S,
-        H, lv, P, lim);
+        H, lv, P, lim, vec);
   } else if (dtype == kF32) {
-    msda_enc_fused_bwd_kernel<float><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+    msda_enc_fused_bwd_kernel<float><<<grid, kEncThreads, 0, st>>>(
         static_cast<const float*>(value), static_cast<const float*>(off),
         static_cast<const float*>(logits), static_cast<const float*>(gout),
         static_cast<float*>(gvalue), static_cast<float*>(goff), static_cast<float*>(glogits),
-        B, S, H, lv, P, lim);
+        B, S, H, lv, P, lim, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

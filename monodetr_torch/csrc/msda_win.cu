@@ -19,11 +19,12 @@
 // was clamped (strict bounds, as kernel 1's backward) and scales it by
 // (w, h).
 //
-// Both are kernel 1's design: one warp per (batch, query, head), lane =
-// channel (D = 32), lane j < L*P reads sample j, the corner rows gathered
-// by common.cuh:sample_heads_sum; dvalue by f32 atomics
-// (common.cuh:sample_heads_bwd).  What bounds them on the H100 is the same
-// L1/L2 gather throughput.  The TPU kernels' strip DMAs, hat functions and
+// Both run one warp per (batch, query, head), lane = channel (D = 32),
+// lane j < L*P reads sample j, the corner rows gathered by
+// common.cuh:sample_heads_sum; dvalue by f32 atomics
+// (common.cuh:sample_heads_bwd).  What bounds them on the H100 is L1/L2
+// gather throughput; kernel 1's layout of four threads per (query, head)
+// with 16-byte loads (msda.cu) computes the same function faster.  The TPU kernels' strip DMAs, hat functions and
 // matmuls are not carried over: they existed because TPU gathers are slow.
 #include "common.cuh"
 

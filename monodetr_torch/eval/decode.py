@@ -5,9 +5,7 @@
 sigma of each pick in the reference's 37-column layout
 (decode_helper.py:57-110).  `decode_detections` and `save_results` are the
 host-side numpy decode to KITTI rows and txt files, copied from the JAX
-package because its module imports jax.  `P2Camera` is the part of
-monodetr_tpu.data.kitti_utils.Calibration that the decode uses, so that
-the inference path imports nothing of the JAX package.
+package because its module imports jax.
 """
 
 import os
@@ -43,30 +41,6 @@ def extract_dets_from_outputs(outputs: Dict, topk: int = 50) -> torch.Tensor:
         depth_sig[..., 0:1], g(outputs["pred_angle"]), g(outputs["pred_3d_dim"]),
         boxes[..., 0:2], torch.exp(-depth_sig[..., 1:2]),
     ], dim=2)
-
-
-class P2Camera:
-    """Back-projection through a P2 matrix (kitti_utils.Calibration with
-    R0 = I, as Calibration.from_p2 builds it)."""
-
-    def __init__(self, P2):
-        P2 = np.asarray(P2, np.float32)
-        self.cu, self.cv = P2[0, 2], P2[1, 2]
-        self.fu, self.fv = P2[0, 0], P2[1, 1]
-        self.tx = P2[0, 3] / (-self.fu)
-        self.ty = P2[1, 3] / (-self.fv)
-
-    def img_to_rect(self, u, v, depth_rect):
-        x = ((u - self.cu) * depth_rect) / self.fu + self.tx
-        y = ((v - self.cv) * depth_rect) / self.fv + self.ty
-        return np.concatenate(
-            (x.reshape(-1, 1), y.reshape(-1, 1), depth_rect.reshape(-1, 1)), axis=1)
-
-    def alpha2ry(self, alpha, u):
-        """Observation angle -> yaw, wrapped once into (-pi, pi]."""
-        a = alpha + np.arctan2(u - self.cu, self.fu)
-        a = np.where(a > np.pi, a - 2 * np.pi, a)
-        return np.where(a < -np.pi, a + 2 * np.pi, a)
 
 
 def get_heading_angle(heading: np.ndarray) -> float:

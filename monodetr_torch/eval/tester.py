@@ -5,58 +5,29 @@ KITTI AP evaluation of those files.
 
 Checkpoints are the JAX package's format (train/checkpoint.py: a pickle of
 numpy pytrees, `model_state` holding the flax params); they load through
-convert.params_from_jax.  The AP evaluator is the JAX package's pure-numpy
-monodetr_tpu/eval/kitti_eval/, loaded from its directory under a package
-name of its own at the first evaluation, so that monodetr_tpu/eval/__init__.py
-(which imports jax) never runs.
+convert.params_from_jax.  The AP evaluator is the port's copy of the JAX
+package's pure-numpy KITTI evaluator (eval/kitti_eval/), imported at the
+first evaluation.
 """
 
-import importlib
-import importlib.util
 import os
 import pickle
-import sys
 import time
-import types
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..convert import params_from_jax
-from .decode import P2Camera, decode_detections, extract_dets_from_outputs, save_results
-
-JAX_PACKAGE_DIR = Path(__file__).resolve().parents[2] / "monodetr_tpu"
-KITTI_EVAL_ROOT = "monodetr_torch_kitti"
-
-
-def kitti_eval_modules():
-    """(kitti_common, eval) of monodetr_tpu/eval/kitti_eval, imported as
-    `monodetr_torch_kitti.eval.kitti_eval`: a package of that name holds
-    monodetr_tpu/native.py (the evaluator's optional C++ matcher, ctypes and
-    numpy only) and an `eval` package whose path is monodetr_tpu/eval, with
-    neither package's __init__ run."""
-    root = KITTI_EVAL_ROOT
-    if root not in sys.modules:
-        top = types.ModuleType(root)
-        top.__path__ = []
-        spec = importlib.util.spec_from_file_location(root + ".native",
-                                                      JAX_PACKAGE_DIR / "native.py")
-        native = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(native)
-        top.native = native
-        ev = types.ModuleType(root + ".eval")
-        ev.__path__ = [str(JAX_PACKAGE_DIR / "eval")]
-        sys.modules.update({root: top, root + ".native": native, root + ".eval": ev})
-    return (importlib.import_module(root + ".eval.kitti_eval.kitti_common"),
-            importlib.import_module(root + ".eval.kitti_eval.eval"))
+from ..data.kitti_utils import Calibration
+from .decode import decode_detections, extract_dets_from_outputs, save_results
 
 
 def kitti_eval(results_dir, label_dir, idx_list, writelist, logger):
     """Official KITTI AP of the result txts against the labels, as
     monodetr_tpu/data/kitti_dataset.py:KITTIDataset.eval (:115-136) does it;
     returns the Car moderate AP3D_R40 (0 when Car is not evaluated)."""
-    kitti, ev = kitti_eval_modules()
+    from .kitti_eval import eval as ev, kitti_common as kitti
+
     logger.info("==> Loading detections and GTs...")
     dt_annos = kitti.get_label_annos(results_dir)
     gt_annos = kitti.get_label_annos(label_dir, [int(i) for i in idx_list])
@@ -158,7 +129,7 @@ class Tester:
             n_valid = len(infos)
             info = {"img_id": [i["img_id"] for i in infos],
                     "img_size": [i["img_size"] for i in infos]}
-            calibs = [P2Camera(batch["calibs"][i]) for i in range(n_valid)]
+            calibs = [Calibration.from_p2(batch["calibs"][i]) for i in range(n_valid)]
             results.update(decode_detections(
                 dets[:n_valid], info, calibs, self.dataloader.dataset.cls_mean_size,
                 self.cfg.get("threshold", 0.2)))

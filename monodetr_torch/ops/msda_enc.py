@@ -76,7 +76,11 @@ def _check(name, value, spatial_shapes, off, logits):
     _build.require_cuda(name, value, off, logits)
     if not value.dtype == off.dtype == logits.dtype:
         raise TypeError(f"{name}: value, off and logits must share a dtype")
-    return _split(value, spatial_shapes, off, logits)
+    B, S, H, D, L, P = _split(value, spatial_shapes, off, logits)
+    if L * P > 16:
+        raise ValueError(f"{name}: the kernel takes at most 16 samples per head, "
+                         f"got {L} levels x {P} points")
+    return B, S, H, D, L, P
 
 
 def _launch_fwd(value, spatial_shapes, off, logits, window):

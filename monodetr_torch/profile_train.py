@@ -6,18 +6,25 @@
 The shipped model (configs/monodetr.yaml, full width and depth, seeded
 random weights; the two impl options switch its deformable attention to
 an opt-in path, e.g. pallas + dense_fused) trains on synthetic 384x1280 images and targets in bf16
-compute with f32 parameters and dropout 0.1 (train/synthetic.py).  After 3 warm-up steps, `--steps` steps run under
-torch.profiler.  Printed: ms/step by CUDA events, the device time per
-step of each group of kernels and of the top kernels, and the device's
-idle share of the profiled window (1 - summed kernel time / window; the
-step runs on one stream, so kernels do not overlap).  The Chrome trace is
-written to <out>/train_trace.json.  Needs a CUDA card.
+compute with f32 parameters and dropout 0.1 (train/synthetic.py).  After 3
+warm-up steps, 30 steps are timed one by one by CUDA events without the
+profiler (steps spread by tens of ms, so one reads their median), then
+`--steps` steps run under torch.profiler.
+Printed: the unprofiled ms/step (mean, median, min, max), the profiled
+window's ms/step, the device time per step of each group of kernels and of
+the top kernels, and the device's idle share (1 - summed kernel time /
+time; the step runs on one stream, so kernels do not overlap) of the
+profiled window and of the median unprofiled step.  The profiler's own
+host work lengthens its window, so the second share is the one a step
+without it sees.  The Chrome trace is written to <out>/train_trace.json.
+Needs a CUDA card.
 """
 
 import argparse
 import os
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from .config import MONODETR_MODEL
@@ -27,6 +34,7 @@ from .train.optimizer import build_optimizer
 from .train.synthetic import SyntheticLoader
 from .train.train_step import batch_to_device, make_train_step
 
+TIMED_STEPS = 30
 # kernel-name substrings -> group, first match wins
 GROUPS = (
     ("msda_enc_fused_bwd", "port: encoder MSDA bwd (kernel 1)"),
@@ -95,6 +103,14 @@ def main(argv=None):
         step(b, 2e-4, gen)
     torch.cuda.synchronize()
 
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        step(batches[i % len(batches)], 2e-4, gen)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -116,8 +132,13 @@ def main(argv=None):
     n = args.steps
     print(f"card: {torch.cuda.get_device_name(0)}; batch {args.batch}, 384x1280, bf16 compute, "
           f"msda_impl {args.msda_impl}, dec_msda_impl {args.dec_msda_impl}")
+    med = float(np.median(step_ms))
+    print(f"unprofiled: {len(step_ms)} steps by CUDA events, ms/step mean "
+          f"{step_ms.mean():.1f} median {med:.1f} min {step_ms.min():.1f} max "
+          f"{step_ms.max():.1f}: " + " ".join(f"{m:.1f}" for m in step_ms))
     print(f"profiled window: {window_ms / n:.1f} ms/step (CUDA events, under the profiler); "
-          f"kernel time {busy / n:.1f} ms/step; device idle share {1 - busy / window_ms:.3f}; "
+          f"kernel time {busy / n:.1f} ms/step; device idle share {1 - busy / window_ms:.3f} "
+          f"of the window, {1 - busy / n / med:.3f} of the median unprofiled step; "
           f"{len(kernels) // n} kernels/step")
     print(f"{'group':44s} {'ms/step':>9s} {'share':>7s} {'kernels/step':>13s}")
     for g, ms in sorted(by_group.items(), key=lambda x: -x[1]):

@@ -109,6 +109,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fused_attention(q.transpose(2, 3), q, q, 0, 1.0, 0.0)
     with pytest.raises(ValueError):
         fused_attention(q, q.cpu(), q, 0, 1.0, 0.0)
+    S = sum(h * w for h, w in SHAPES)  # kernel 1 takes at most 16 samples per head
+    value = torch.zeros(1, S, H, D, device=cuda)
+    with pytest.raises(ValueError):
+        ms_deform_attn_enc_fused(value, SHAPES, torch.zeros(1, S, 2 * H * L * 8, device=cuda),
+                                 torch.zeros(1, S, H * L * 8, device=cuda), 6)
 
 
 def test_model_forward_through_kernels(cuda):
@@ -440,3 +445,101 @@ def test_lap_kernel_is_bit_identical(cuda, N):
     assert lap_solve.launches == before + 1
     want = lap_solve_plain(cost.cpu(), valid.cpu())
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk", [(1920, 1920), (550, 1920), (50, 1920), (77, 130)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_attention_kernels_against_plain(cuda, dtype, tq, tk, p):
+    """The attention kernels (bf16: tensor cores; f32: scalar) at the main
+    path's shapes and a ragged one, with the keep mask of
+    attention_keep_mask given to the plain version: the output within TOL,
+    the gradients of q, k and v within GRAD_TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(tq * 7 + tk)
+    q, k, v = (torch.randn(2, H, t, D, generator=gen, device=cuda).to(dtype)
+               for t in (tq, tk, tk))
+    g = torch.randn(2, H, tq, D, generator=gen, device=cuda)
+    keep = attention_keep_mask((2, H, tq, tk), 5, p, cuda) if p > 0 else None
+    assert max_err(fused_attention(q, k, v, 5, D ** -0.5, p),
+                   attention_plain(q, k, v, D ** -0.5, keep, p)) <= TOL_OF[dtype]
+    got = grads_of(lambda *x: fused_attention(*x, 5, D ** -0.5, p), (q, k, v), g)
+    want = grads_of(lambda *x: attention_plain(*x, D ** -0.5, keep, p), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_keep_bits_are_the_keep_mask(cuda, dtype):
+    """The forward's and the dk/dv kernel's keep bits, read off exactly, are
+    attention_keep_mask's.  With q = 0 every probability is 1 / Tk; with
+    v[j] = 2^(j // 32) e_(j % 32), out[i, d] * Tk * (1 - p) is the integer
+    whose bit m is keep[i, 32 m + d]; with dO built the same way over the
+    queries, so is dv[j, d] * Tk * (1 - p) for keep[32 m + d, j]."""
+    B, Tq, Tk, p = 2, 128, 130, 0.25
+
+    def code(n):  # [n, 32]: row j = 2^(j // 32) e_(j % 32)
+        x = torch.zeros(n, D, device=cuda)
+        j = torch.arange(n, device=cuda)
+        x[j, j % 32] = 2.0 ** (j // 32).float()
+        return x
+
+    def bits(x, n):  # [.., 32] integers -> [.., n] bits, column 32 m + d = bit m of x[d]
+        x = torch.round(x.float()).long()
+        m = torch.arange((n + 31) // 32, device=cuda)
+        return ((x[..., None, :] >> m[:, None]) & 1).flatten(-2)[..., :n].bool()
+
+    keep = attention_keep_mask((B, H, Tq, Tk), 9, p, cuda)
+    q = torch.zeros(B, H, Tq, D, device=cuda, dtype=dtype)
+    k = torch.randn(B, H, Tk, D, device=cuda).to(dtype)
+    v = code(Tk).expand(B, H, Tk, D).contiguous().to(dtype)
+    out = fused_attention(q, k, v, 9, D ** -0.5, p)
+    assert torch.equal(bits(out * Tk * (1 - p), Tk), keep)
+    go = code(Tq).expand(B, H, Tq, D).contiguous().to(dtype)
+    _, _, dv = grads_of(lambda *x: fused_attention(*x, 9, D ** -0.5, p), (q, k, v), go)
+    assert torch.equal(bits(dv * Tk * (1 - p), Tq), keep.transpose(-1, -2))
+
+
+def enc_edge_case(case, dtype, seed=0):
+    """(value, off, logits), gout at the small levels, where most queries sit
+    on a level's border: 'clamp' offsets 0.5-3 px beyond the window (all
+    clamped), 'border' offsets of up to the window pointing anywhere, with
+    many samples outside the level (zero padding), 'spread' logits 200
+    apart between heads, 'c3' offsets at odd multiples of 1/32 px (ROADMAP.md
+    C3).  Every sample stays >= 0.01 px off integer positions."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = sum(h * w for h, w in SHAPES)
+    lim = window_limit(6)
+    u = torch.rand(1, S, 256, generator=g, device="cuda")
+    sign = torch.where(torch.rand(1, S, 256, generator=g, device="cuda") < 0.5, -1.0, 1.0)
+    if case == "clamp":
+        off = sign * (lim + 0.5 + u * 2.5)
+    elif case == "border":
+        off = sign * u * lim
+    else:
+        off = (u * 2 - 1) * (lim + 1)
+    off = (torch.floor(off * 16) * 2 + 1) / 32
+    logits = torch.randn(1, S, H, L * P, generator=g, device="cuda") * 2
+    if case == "spread":
+        logits = logits + torch.linspace(-100, 100, H, device="cuda")[:, None]
+    value = torch.randn(1, S, H, D, generator=g, device="cuda").to(dtype)
+    gout = torch.randn(1, S, H * D, generator=g, device="cuda")
+    return (value, off.to(dtype), logits.reshape(1, S, H * L * P).to(dtype)), gout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["clamp", "border", "spread", "c3"])
+def test_enc_fused_kernels_on_edge_inputs(cuda, dtype, case):
+    """Kernel 1 forward within TOL and backward within GRAD_TOL of its plain
+    version (autograd through it) on the edge inputs of enc_edge_case."""
+    (value, off, logits), g = enc_edge_case(case, dtype)
+    got = ms_deform_attn_enc_fused(value, SHAPES, off, logits, 6)
+    want = ms_deform_attn_enc_fused_plain(value, SHAPES, off, logits, 6)
+    assert max_err(got, want) <= TOL_OF[dtype]
+    got = grads_of(lambda *x: ms_deform_attn_enc_fused(x[0], SHAPES, x[1], x[2], 6),
+                   (value, off, logits), g)
+    want = grads_of(lambda *x: ms_deform_attn_enc_fused_plain(x[0], SHAPES, x[1], x[2], 6),
+                    (value, off, logits), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+    if case == "clamp":
+        assert (got[1] == 0).all()  # every offset was clamped

@@ -1,7 +1,8 @@
 """monodetr_torch eval path and guards: decode against the JAX package,
 the checkpoint conversion round trip, the smoke's model dict, the KITTI AP
 evaluation against the JAX dataset's, the CLI (evaluation and one epoch of
-training) on the synthetic KITTI fixture (no jax imported), and
+training) on the synthetic KITTI fixture (no jax imported, no module of the
+JAX package loaded), and
 chip_smoke.py refusing to run without a CUDA card."""
 
 import os
@@ -25,6 +26,7 @@ from monodetr_tpu.data.kitti_utils import Calibration  # noqa: E402
 from monodetr_tpu.eval import decode as jax_decode  # noqa: E402
 from monodetr_torch.config import MONODETR_MODEL  # noqa: E402
 from monodetr_torch.convert import params_from_jax  # noqa: E402
+from monodetr_torch.data.kitti_utils import Calibration as TorchCalibration  # noqa: E402
 from monodetr_torch.eval import decode  # noqa: E402
 from monodetr_torch.eval import tester as torch_tester  # noqa: E402
 from monodetr_torch.models.monodetr import build_monodetr  # noqa: E402
@@ -61,7 +63,8 @@ def test_host_decode_and_txt_match_jax(tmp_path):
                   np.float32)
     info = {"img_id": [7, 9], "img_size": [np.array([1242.0, 375.0])] * 2}
     mean_size = np.random.RandomState(4).rand(3, 3)
-    got = decode.decode_detections(dets, info, [decode.P2Camera(p2)] * 2, mean_size, 0.1)
+    got = decode.decode_detections(dets, info, [TorchCalibration.from_p2(p2)] * 2, mean_size,
+                                   0.1)
     want = jax_decode.decode_detections(dets, info, [Calibration.from_p2(p2)] * 2,
                                         mean_size, 0.1)
     assert got.keys() == want.keys() and sum(map(len, got.values())) > 0
@@ -177,6 +180,15 @@ def test_evaluate_matches_the_jax_dataset_eval(tmp_path):
     assert got == want
 
 
+# after a CLI run: whether jax was imported, and every loaded module whose
+# file lies under monodetr_tpu/ (loaded by name or by path)
+JAX_PACKAGE_REPORT = (
+    "import os; jpd = os.path.join(%r, 'monodetr_tpu') + os.sep; "
+    "print('jax imported:', 'jax' in sys.modules); "
+    "print('jax package modules:', sorted(n for n, m in list(sys.modules.items()) "
+    "if os.path.abspath(getattr(m, '__file__', None) or '').startswith(jpd)))" % REPO)
+
+
 def _run(args, cwd, env=None):
     return subprocess.run([sys.executable] + args, cwd=cwd, capture_output=True, text=True,
                           timeout=600, env=env)
@@ -195,11 +207,12 @@ def test_cli_evaluate_only_writes_kitti_txts_without_jax(tmp_path):
     tool = os.path.join(REPO, "tools", "train_val_torch.py")
     code = ("import runpy, sys; sys.argv = [%r, '--config', 'tiny.yaml', '-e', "
             "'--device', 'cpu']; "
-            "runpy.run_path(%r, run_name='__main__'); "
-            "print('jax imported:', 'jax' in sys.modules)" % (tool, tool))
+            "runpy.run_path(%r, run_name='__main__'); " % (tool, tool)
+            + JAX_PACKAGE_REPORT)
     proc = _run(["-c", code], tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "jax imported: False" in proc.stdout
+    assert "jax package modules: []" in proc.stdout
     txts = os.listdir(tmp_path / "outputs" / "smoke" / "outputs" / "data")
     assert len(txts) == 2  # one per val image
     rows = (tmp_path / "outputs" / "smoke" / "outputs" / "data" / txts[0]).read_text()
@@ -226,11 +239,12 @@ def test_cli_trains_one_epoch_without_jax(tmp_path):
         yaml.safe_dump(cfg, f)
     tool = os.path.join(REPO, "tools", "train_val_torch.py")
     code = ("import runpy, sys; sys.argv = [%r, '--config', 'tiny.yaml', '--device', 'cpu']; "
-            "runpy.run_path(%r, run_name='__main__'); "
-            "print('jax imported:', 'jax' in sys.modules)" % (tool, tool))
+            "runpy.run_path(%r, run_name='__main__'); " % (tool, tool)
+            + JAX_PACKAGE_REPORT)
     proc = _run(["-c", code], tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "jax imported: False" in proc.stdout
+    assert "jax package modules: []" in proc.stdout
     run_dir = tmp_path / "outputs" / "train_smoke"
     with open(run_dir / "checkpoint.pth", "rb") as f:
         state = pickle.load(f)

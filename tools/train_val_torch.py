@@ -23,13 +23,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import torch  # noqa: E402
 
+from monodetr_torch.config import load_config  # noqa: E402
+from monodetr_torch.data import build_dataloader  # noqa: E402
 from monodetr_torch.eval.tester import Tester  # noqa: E402
 from monodetr_torch.models.criterion import SetCriterion  # noqa: E402
 from monodetr_torch.models.monodetr import build_monodetr, compute_dtype  # noqa: E402
 from monodetr_torch.train.trainer import Trainer  # noqa: E402
-from monodetr_tpu.config import load_config  # noqa: E402
-from monodetr_tpu.data import build_dataloader  # noqa: E402
-from monodetr_tpu.utils.misc import create_logger, set_random_seed  # noqa: E402
+from monodetr_torch.utils.misc import create_logger, set_random_seed  # noqa: E402
 
 
 def main(argv=None):
