@@ -29,7 +29,12 @@ Phases, one line each (or a few), and any failure exits non-zero:
      steps, each with its launch counters, ms/step beside the default's,
      and its f32 step against the plain versions.  Phases 3 and 4 hold
      kernels 5-7 against their plain versions, and kernel 7's scatter-free
-     value gradient bit-identical from run to run.
+     value gradient bit-identical from run to run.  Kernels 5 and 6 are
+     also held to them at the window's edge (most positions beyond the
+     window: kernel 6 clamps them and masks their gradient, kernel 5
+     samples them as they are, outside the rectangles its backward stages
+     in shared memory), and a line gives that backward's shared-memory
+     bytes and blocks per SM.
 The kernel report (JSON) sums each kernel's launches over the main-path
 runs of phases 5-7 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
@@ -71,11 +76,12 @@ from monodetr_torch.ops.msda_enc import (  # noqa: E402
     window_limit)
 from monodetr_torch.ops.msda_pallas import (  # noqa: E402
     ms_deform_attn_pallas_packed, ms_deform_attn_pallas_packed_bwd,
-    ms_deform_attn_pallas_packed_plain, pack)
+    ms_deform_attn_pallas_packed_plain, pack, to_lanes)
 from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd  # noqa: E402
 from monodetr_torch.ops.msda_sepwin import (  # noqa: E402
     ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd)
-from monodetr_torch.ops.msda_windowed import ms_deform_attn_windowed  # noqa: E402
+from monodetr_torch.ops.msda_windowed import (  # noqa: E402
+    WIN_HEADS, backward_occupancy, ms_deform_attn_windowed, window_bounds, window_tiles)
 from monodetr_torch.train.synthetic import SyntheticLoader  # noqa: E402
 
 LEVELS = ((48, 160), (24, 80), (12, 40), (6, 20))  # 384x1280 / 8, 16, 32, 64
@@ -258,6 +264,16 @@ def window_locations(gen, B):
     return grid + (torch.floor(off * 16) * 2 + 1) / 32 / wh[:, None]
 
 
+def edge_locations(gen, B):
+    """As window_locations, out to 3 px beyond the window on either side:
+    about 3 positions in 5 lie beyond it."""
+    lim = window_limit(G)
+    wh = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32, device="cuda")
+    grid = torch.from_numpy(encoder_reference_points(LEVELS)).cuda()[None, :, None, None, None]
+    off = (torch.rand(B, S, H, L, P, 2, generator=gen, device="cuda") * 2 - 1) * (lim + 3)
+    return grid + (torch.floor(off * 16) * 2 + 1) / 32 / wh[:, None]
+
+
 def weights(gen, B, Q):
     return torch.softmax(randn(gen, B, Q, H, L * P), -1).view(B, Q, H, L, P)
 
@@ -379,7 +395,7 @@ def backward_case(name, B, dtype, gen, q=TRAIN_QUERIES):
                     lambda v, lc, a: ms_deform_attn_windowed(v, LEVELS, lc, a, G),
                     (value, loc, att), gout)
         fx, fy, lanes = pack(LEVELS, loc, att, G)
-        return (lambda g: ms_deform_attn_pallas_packed_bwd(value, LEVELS, fx, fy, lanes, g),
+        return (lambda g: ms_deform_attn_pallas_packed_bwd(value, LEVELS, fx, fy, lanes, g, G),
                 lambda v, x, y, a: ms_deform_attn_pallas_packed_plain(v, LEVELS, x, y, a),
                 (value, fx, fy, lanes), gout)
     if name == "msda_dense_fused_bwd":
@@ -494,6 +510,71 @@ def phase_backward_kernels():
                             bound_by=bound_by, library_ms=library_ms)
         del kernel, plain, inputs, gout, got, xs, out, want
     return report
+
+
+def phase_window_edges():
+    """Kernels 5 and 6 at the window's edge, forward and backward against
+    their plain versions, f32 at B=2 and bf16 at B=16: kernel 6 from
+    locations of which most lie beyond the window (the clamp and the dloc
+    mask), kernel 5 at those positions unclamped (exact beyond the window,
+    where its value gradient goes to device memory directly).  Then the
+    backward's shared memory and blocks per SM, as the runtime reports."""
+    wh = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32, device="cuda")
+    for dtype, B in ((torch.float32, 2), (torch.bfloat16, 16)):
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        value, loc, att = randn(gen, B, S, H, D).to(dtype), edge_locations(gen, B), weights(gen, B, S)
+        gout = randn(gen, B, S, H * D).to(dtype)
+        f = loc * wh[:, None] - 0.5
+        beyond = ((f - f.clamp(*(x[None, :, None, :, None, :] for x in edge_bounds()))) != 0)
+        fx, fy, lanes = (to_lanes(x).contiguous() for x in (f[..., 0], f[..., 1], att))
+        tag = f"{str(dtype).replace('torch.', '')} B={B}"
+        cases = (
+            ("msda_sepwin", lambda: ms_deform_attn_sepwin(value, LEVELS, loc, att, G),
+             lambda g: ms_deform_attn_sepwin_bwd(value, LEVELS, loc, att, g, G),
+             lambda v, lc, a: ms_deform_attn_windowed(v, LEVELS, lc, a, G), (value, loc, att)),
+            ("msda_pallas", lambda: ms_deform_attn_pallas_packed(value, LEVELS, fx, fy, lanes, G),
+             lambda g: ms_deform_attn_pallas_packed_bwd(value, LEVELS, fx, fy, lanes, g, G),
+             lambda v, x, y, a: ms_deform_attn_pallas_packed_plain(v, LEVELS, x, y, a),
+             (value, fx, fy, lanes)))
+        for name, forward, backward, plain, inputs in cases:
+            xs = [x.detach().requires_grad_(True) for x in inputs]
+            want = plain(*xs)
+            got = forward()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = err <= TOL[dtype] and torch.isfinite(got).all().item()
+            log(f"kernel {name} {tag} at the window's edge ({beyond.float().mean().item():.2f} of "
+                f"the positions beyond it): max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{name} {tag} disagrees with its plain version at the "
+                                   f"window's edge")
+            grads = backward(gout)
+            check_grads(f"{name}_bwd", tag + " at the window's edge", dtype, grads,
+                        torch.autograd.grad(want, xs, gout))
+            if name == "msda_sepwin":  # dloc passes only inside the window
+                masked = (grads[1][beyond] == 0).all().item()
+                log(f"kernel msda_sepwin_bwd {tag}: dloc 0 at every clamped position {masked} "
+                    f"{'ok' if masked else 'FAIL'}")
+                if not masked:
+                    raise RuntimeError("msda_sepwin_bwd: a clamped position got a gradient")
+            del xs, want, got, grads
+    tiles = window_tiles(LEVELS, G)
+    shape = {}
+    for kernel, name in ((5, "msda_pallas_bwd"), (6, "msda_sepwin_bwd")):
+        blocks, smem = backward_occupancy(kernel, torch.bfloat16, LEVELS, G)
+        shape[name] = {"smem_bytes": smem, "blocks_per_sm": blocks}
+        if smem != tiles.smem_bytes or blocks < 1:
+            raise RuntimeError(f"{name}: {smem} bytes of shared memory, {blocks} blocks per SM; "
+                               f"the tiling asks for {tiles.smem_bytes}")
+    return {"windowed_backward": dict(
+        shape, heads_per_block=WIN_HEADS, tile_pixels=list(tiles.side),
+        queries_per_tile=tiles.queries, rows_per_head=tiles.rows)}
+
+
+def edge_bounds():
+    """(lo, hi) [S, L, 2] on the card: each grid query's window in every level."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in window_bounds(LEVELS, G))
 
 
 def phase_dropout():
@@ -786,6 +867,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     report = phase_forward_kernels()
     report.update(phase_backward_kernels())
+    windowed_backward = phase_window_edges()
     phase_dropout()
     report.update(phase_lap())
     totals = dict.fromkeys(KERNELS, 0)
@@ -815,6 +897,7 @@ def main():
     idle = [k for k, v in totals.items() if v == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")
+    log(json.dumps(windowed_backward))
     log(json.dumps({"kernels": [
         dict(name=name, route=spec["route"], source=spec["source"],
              replaces=spec["replaces"], launches=totals[name], **report[name])

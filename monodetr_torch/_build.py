@@ -39,9 +39,10 @@ SIGNATURES = {
     "mdt_msda_sep": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "mdt_msda_sep_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
     "mdt_msda_pallas": (_P,) * 5 + (_I,) * 7 + (_P, _P),
-    "mdt_msda_pallas_bwd": (_P,) * 9 + (_I,) * 7 + (_P, _P),
+    "mdt_msda_pallas_bwd": (_P,) * 9 + (_I,) * 7 + (_P, _P, _P, _F, _P),
     "mdt_msda_sepwin": (_P,) * 4 + (_I,) * 7 + (_P, _F, _P),
-    "mdt_msda_sepwin_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _F, _P),
+    "mdt_msda_sepwin_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _P, _P, _F, _P),
+    "mdt_msda_win_bwd_occupancy": (_I, _I, _I, _P, _P, _P),
     "mdt_msda_dense_fused": (_P,) * 4 + (_I,) * 8 + (_P, _P),
     "mdt_msda_dense_fused_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
     "mdt_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_F, _P, _U, _P),
@@ -164,6 +165,11 @@ def levels_arg(spatial_shapes):
     """Host int array (h0, w0, h1, w1, ...) for a kernel's `hw` argument."""
     flat = [int(x) for hw in spatial_shapes for x in hw]
     return (ctypes.c_int * len(flat))(*flat)
+
+
+def ints_arg(values):
+    """Host int array for a kernel's table argument."""
+    return (ctypes.c_int * len(values))(*(int(v) for v in values))
 
 
 def stream_of(t) -> int:

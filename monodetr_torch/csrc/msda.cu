@@ -25,8 +25,10 @@
 // (common.cuh:sample_heads_bwd) takes three warp sums per sample for the
 // weight and position gradients and (kernel 7 apart) adds the value
 // gradient to an f32 buffer by one atomicAdd per valid corner and channel.
-// Kernel 1, at 60x their work per step, has a layout of its own (below):
-// four threads per (b, q, h), 16-byte corner loads, vector atomics.
+// Kernel 1, at 60x their work per step, runs the quad core of common.cuh
+// (quad_sample_sum, quad_sample_dots), which it shares with the windowed
+// kernels 5 and 6 of msda_win.cu: four threads per (b, q, h), 16-byte
+// corner loads; its backward adds dvalue by vector atomics.
 //
 // What bounds them on the H100: gathers.  At B=16, S=10200 kernel 1 reads
 // 16 * 10200 * 8 * 16 * 4 corner rows of 64 B (bf16), ~5 GB of corner rows
@@ -38,105 +40,27 @@
 // hat-function matmuls existed because TPU gathers are slow; on Hopper the
 // plain gather is the fast path.  Staging a query tile's value window in
 // shared memory (the Hopper analogue of the TPU strips) is the next step
-// if the L1 hit rate turns out to bound kernel 1.
+// if the L1 hit rate turns out to bound kernel 1's forward; the windowed
+// backward of msda_win.cu already sums a tile's value gradient there.
 #include "common.cuh"
 
 namespace mdt {
 
-// Kernel 1 is laid out for Hopper's 16-byte loads: a quad of 4 threads per
-// (batch, query, head), thread s owning channels 8s .. 8s + 7, so one corner
-// of one sample is one 16-byte load per thread (bf16; two in f32), where a
-// warp per (b, q, h) issues 32 loads of 2 bytes.  A block is 64 quads: 8
+// Kernel 1 runs the quad core of common.cuh: 4 threads per (batch, query,
+// head), thread s owning channels 8s .. 8s + 7.  A block is 64 quads: 8
 // consecutive queries of one batch item x 8 heads, whose sampling windows
 // overlap in L1.  Prologue: thread s reads logits and x/y offsets of samples
 // 4s .. 4s + 3 by vector loads; the head's max and sum take 2 quad shuffles
 // each (the head's own maximum, ROADMAP.md C2); each thread computes the
-// weight, clamp and pixel position of its 4 samples.  Sampling: the quad
-// shares the 16 samples by __shfl_sync, one at a time, and each thread
-// issues the sample's 4 corner loads before their FMAs.  The level table
-// is a __grid_constant__ parameter, indexed in place, so the kernels keep
-// no stack frame.  The backward has the same layout: gatt, gx and gy are
-// 8-channel partial dots plus 2 quad shuffles each, and dvalue goes to the
-// f32 gvalue by atomicAdd(float4*) (compute capability 9.x), 2 vector
-// atomics per corner and thread.
+// weight, clamp and pixel position of its 4 samples.  Sampling:
+// common.cuh:quad_sample_sum.  The level table is a __grid_constant__
+// parameter, indexed in place, so the kernels keep no stack frame.  The
+// backward has the same layout: gatt, gx and gy are 8-channel partial dots
+// plus 2 quad shuffles each (common.cuh:quad_sample_dots), and dvalue goes
+// to the f32 gvalue by atomicAdd(float4*) (compute capability 9.x), 2
+// vector atomics per corner and thread.
 constexpr int kEncQuads = 64;
 constexpr int kEncThreads = 4 * kEncQuads;
-
-// 8 channels of one token row, as loaded.
-template <typename T>
-struct Row8;
-template <>
-struct Row8<__nv_bfloat16> {
-  uint4 u;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    u = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ void get(float (&x)[8]) const {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-};
-template <>
-struct Row8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = __ldg(reinterpret_cast<const float4*>(p));
-    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  }
-  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ __forceinline__ void get(float (&x)[8]) const {
-    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
-  }
-};
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&x)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&v);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
-}
-
-// Elements 0 .. n - 1 of p (4 when `vec`: one 8- or 16-byte load), zeros after.
-__device__ __forceinline__ void load4(const float* p, float (&x)[4], int n, bool vec) {
-  if (vec && n == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) x[u] = u < n ? p[u] : 0.f;
-  }
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4], int n, bool vec) {
-  if (vec && n == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
-  } else {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) x[u] = u < n ? to_f32(p[u]) : 0.f;
-  }
-}
-template <typename T>
-__device__ __forceinline__ void store4(T* p, const float (&x)[4], int n) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-    if (u < n) p[u] = from_f32<T>(x[u]);
-}
 
 // Thread s of the quad of (b, q, h): samples j = 4s + u (u < n), their
 // softmaxed weight and clamped pixel position, and in bit u (4 + u) of
@@ -189,40 +113,6 @@ __device__ __forceinline__ EncQuad enc_prologue(const T* __restrict__ off,
   return e;
 }
 
-// The four corners k = 0 (x0, y0), 1 (x0 + 1, y0), 2 (x0, y0 + 1), 3 of a
-// sample at pixel (x, y) of a w-wide, h-high level: flat token index in the
-// level, bilinear weight, and in bit k of `ok` whether the corner lies in
-// the level (zero padding outside).
-struct Corners {
-  int i00, w;
-  float lx, ly;
-  unsigned ok;
-  __device__ __forceinline__ int index(int k) const { return i00 + (k & 1) + (k >> 1) * w; }
-  __device__ __forceinline__ float weight(int k) const {
-    return ((k & 1) ? lx : 1.f - lx) * ((k >> 1) ? ly : 1.f - ly);
-  }
-};
-
-__device__ __forceinline__ Corners corners(float x, float y, int hl, int wl) {
-  Corners c;
-  const float x0f = floorf(x), y0f = floorf(y);
-  const int x0 = (int)x0f, y0 = (int)y0f;
-  c.lx = x - x0f;
-  c.ly = y - y0f;
-  c.w = wl;
-  c.i00 = y0 * wl + x0;
-  const bool vx0 = x0 >= 0 && x0 < wl, vx1 = x0 + 1 >= 0 && x0 + 1 < wl;
-  const bool vy0 = y0 >= 0 && y0 < hl, vy1 = y0 + 1 >= 0 && y0 + 1 < hl;
-  c.ok = (unsigned)(vy0 && vx0) | (unsigned)(vy0 && vx1) << 1 | (unsigned)(vy1 && vx0) << 2 |
-         (unsigned)(vy1 && vx1) << 3;
-  return c;
-}
-
-// A thread loads a sample's 4 corners before it uses any of them.  More
-// samples in flight cost registers and so resident warps: at B = 16 the
-// bf16 forward took 1.66 ms with 4 samples in flight (168 registers, 8
-// warps per SM), 1.06 ms with 2 (106, 16 warps) and 0.90 ms with 1 (72,
-// 24 warps) on an H100 SXM at 700 W.
 template <typename T>
 __global__ void __launch_bounds__(kEncThreads, 3)
 msda_enc_fused_kernel(const T* __restrict__ value, const T* __restrict__ off,
@@ -238,37 +128,10 @@ msda_enc_fused_kernel(const T* __restrict__ value, const T* __restrict__ off,
   const int b = (int)(bq / S);
   const EncQuad e = enc_prologue(off, logits, bq, q, H, h, lv, P, lim, sub, qmask, vec);
 
-  const int64_t row = (int64_t)H * 32;
+  const int row = H * 32;
   const T* vb = value + (int64_t)b * S * row + h * 32 + sub * 8;
-  const int LP = lv.n * P;
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {  // sample j is held by thread j / 4 of the quad
-    if (j >= LP) break;
-    const int src = (lane & ~3) | (j >> 2);
-    const float a = __shfl_sync(qmask, e.att[j & 3], src);
-    const float x = __shfl_sync(qmask, e.fx[j & 3], src);
-    const float y = __shfl_sync(qmask, e.fy[j & 3], src);
-    const int l = j / P;
-    const Corners c = corners(x, y, lv.h[l], lv.w[l]);
-    const T* vl = vb + (int64_t)lv.start[l] * row;
-    Row8<T> v[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if ((c.ok >> k) & 1u)
-        v[k].load(vl + (int64_t)c.index(k) * row);
-      else
-        v[k].zero();
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float xv[8];
-      v[k].get(xv);
-      const float w = a * c.weight(k);
-#pragma unroll
-      for (int d = 0; d < 8; ++d) acc[d] = fmaf(w, xv[d], acc[d]);
-    }
-  }
+  quad_sample_sum(vb, row, lv, P, e.att, e.fx, e.fy, lane, qmask, acc);
   store8(out + bq * row + h * 32 + sub * 8, acc);
 }
 
@@ -281,9 +144,7 @@ msda_enc_fused_kernel(const T* __restrict__ value, const T* __restrict__ off,
 // contiguous bytes.  doff is the sampling derivative where |off| < lim (the
 // Pallas kernel's strict clamp mask, :471) and 0 where the offset was
 // clamped; dlogits goes through the head's softmax: att * (gatt -
-// sum(att * gatt)).  The position derivative is the one-sided bilinear one
-// at x0 = floor(x) (F.grid_sample's backward): at an integer position it is
-// v[x0 + 1] - v[x0].
+// sum(att * gatt)).
 template <typename T>
 __global__ void __launch_bounds__(kEncThreads, 2)
 msda_enc_fused_bwd_kernel(const T* __restrict__ value, const T* __restrict__ off,
@@ -301,7 +162,7 @@ msda_enc_fused_bwd_kernel(const T* __restrict__ value, const T* __restrict__ off
   const int b = (int)(bq / S);
   const EncQuad e = enc_prologue(off, logits, bq, q, H, h, lv, P, lim, sub, qmask, vec);
 
-  const int64_t row = (int64_t)H * 32;
+  const int row = H * 32;
   const T* vb = value + (int64_t)b * S * row + h * 32 + sub * 8;
   float* gb = gvalue + (int64_t)b * S * row + h * 32 + sub * 4;
   const T* gq = gout + bq * row + h * 32;
@@ -327,38 +188,11 @@ msda_enc_fused_bwd_kernel(const T* __restrict__ value, const T* __restrict__ off
     const float y = __shfl_sync(qmask, e.fy[j & 3], src);
     const int l = j / P;
     const Corners c = corners(x, y, lv.h[l], lv.w[l]);
-    const int64_t start = lv.start[l];
+    const int start = lv.start[l];
     Row8<T> v[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if ((c.ok >> k) & 1u)
-        v[k].load(vb + (start + c.index(k)) * row);
-      else
-        v[k].zero();
-    }
-    float v00[8], v01[8], v10[8], v11[8];
-    v[0].get(v00);
-    v[1].get(v01);
-    v[2].get(v10);
-    v[3].get(v11);
-    const float lx = c.lx, ly = c.ly;
-    float pa = 0.f, px = 0.f, py = 0.f;
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      const float s = (1.f - ly) * ((1.f - lx) * v00[d] + lx * v01[d]) +
-                      ly * ((1.f - lx) * v10[d] + lx * v11[d]);
-      const float dx = (1.f - ly) * (v01[d] - v00[d]) + ly * (v11[d] - v10[d]);
-      const float dy = (1.f - lx) * (v10[d] - v00[d]) + lx * (v11[d] - v01[d]);
-      pa = fmaf(g[d], s, pa);
-      px = fmaf(g[d], dx, px);
-      py = fmaf(g[d], dy, py);
-    }
-#pragma unroll
-    for (int sh = 1; sh < 4; sh <<= 1) {
-      pa += __shfl_xor_sync(qmask, pa, sh);
-      px += __shfl_xor_sync(qmask, px, sh);
-      py += __shfl_xor_sync(qmask, py, sh);
-    }
+    load_corners(vb + start * row, row, c, v);
+    float pa, px, py;
+    quad_sample_dots(v, g, c.lx, c.ly, qmask, pa, px, py);
     if (sub == (j >> 2)) {
       gatt[j & 3] = pa;
       gx[j & 3] = a * px;
@@ -615,7 +449,8 @@ extern "C" {
 int mdt_msda_enc_fused(void* value, void* off, void* logits, void* out, int dtype, int B,
                        int S, int H, int D, int L, int P, void* hw, float lim,
                        void* stream) {
-  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 16) return (int)cudaErrorInvalidValue;
+  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 16 || !fits_int32(S, H))
+    return (int)cudaErrorInvalidValue;
   if (!aligned16({value, out})) return (int)cudaErrorMisalignedAddress;
   const Levels lv = make_levels(L, static_cast<const int*>(hw));
   const unsigned grid = enc_blocks((int64_t)B * S * H);
@@ -667,7 +502,8 @@ int mdt_msda_sep(void* value, void* loc, void* attn, void* out, int dtype, int B
 int mdt_msda_enc_fused_bwd(void* value, void* off, void* logits, void* gout, void* gvalue,
                            void* goff, void* glogits, int dtype, int B, int S, int H, int D,
                            int L, int P, void* hw, float lim, void* stream) {
-  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 16) return (int)cudaErrorInvalidValue;
+  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 16 || !fits_int32(S, H))
+    return (int)cudaErrorInvalidValue;
   if (!aligned16({value, gout, gvalue})) return (int)cudaErrorMisalignedAddress;
   const Levels lv = make_levels(L, static_cast<const int*>(hw));
   const unsigned grid = enc_blocks((int64_t)B * S * H);

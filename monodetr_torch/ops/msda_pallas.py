@@ -18,8 +18,9 @@ import torch
 
 from .. import _build
 from .msda import ms_deform_attn_px
-from .msda_enc import grid_centers
-from .msda_windowed import check_grid_contract, clamp_to_window
+from .msda_enc import grid_centers, window_limit
+from .msda_windowed import (check_grid_contract, clamp_to_window, window_plan_args,
+                            window_tiles)
 
 LANES = 128  # H * L * P of the lane-packing contract
 
@@ -100,9 +101,10 @@ def _check(name, value, spatial_shapes, fx, fy, att):
     return _split(name, value, spatial_shapes, fx, fy, att)
 
 
-def _launch_fwd(value, spatial_shapes, fx, fy, att):
+def _launch_fwd(value, spatial_shapes, fx, fy, att, window):
     B, S, H, D, L, P = _check("ms_deform_attn_pallas_packed", value, spatial_shapes,
                               fx, fy, att)
+    window_tiles(spatial_shapes, window)  # what the backward cannot tile is refused here
     out = torch.empty(B, S, H * D, dtype=value.dtype, device=value.device)
     _build.launch(
         "mdt_msda_pallas", value.data_ptr(), fx.data_ptr(), fy.data_ptr(), att.data_ptr(),
@@ -112,12 +114,17 @@ def _launch_fwd(value, spatial_shapes, fx, fy, att):
     return out
 
 
-def ms_deform_attn_pallas_packed_bwd(value, spatial_shapes, fx, fy, att, gout):
+def ms_deform_attn_pallas_packed_bwd(value, spatial_shapes, fx, fy, att, gout, window=8):
     """The backward kernel (csrc/msda_win.cu:msda_pallas_bwd_kernel) on CUDA
     tensors: (dvalue in value's dtype, dfx, dfy, datt f32) for the output
-    gradient `gout` [B, S, H*D].  dvalue is summed in f32 by atomics."""
+    gradient `gout` [B, S, H*D].  dvalue is summed in f32: per tile of
+    queries in shared memory (ops/msda_windowed.py:window_tiles, which
+    raises ValueError for a pyramid and window that do not fit there), then
+    row by row by vector atomics; `window` only says where the positions
+    are expected, the gradients are exact at any position."""
     name = "ms_deform_attn_pallas_packed_bwd"
     B, S, H, D, L, P = _check(name, value, spatial_shapes, fx, fy, att)
+    plan, tiles = window_plan_args(spatial_shapes, window, value.device)
     gout = gout.contiguous()
     if gout.shape != (B, S, H * D) or gout.dtype != value.dtype:
         raise ValueError(f"{name}: gout {tuple(gout.shape)} {gout.dtype}")
@@ -128,35 +135,39 @@ def ms_deform_attn_pallas_packed_bwd(value, spatial_shapes, fx, fy, att, gout):
         "mdt_msda_pallas_bwd", value.data_ptr(), fx.data_ptr(), fy.data_ptr(),
         att.data_ptr(), gout.data_ptr(), gvalue.data_ptr(), gfx.data_ptr(), gfy.data_ptr(),
         gatt.data_ptr(), _build.dtype_code(value.dtype), B, S, H, D, L, P,
-        _build.levels_arg(spatial_shapes), _build.stream_of(value))
+        _build.levels_arg(spatial_shapes), plan, tiles, window_limit(window),
+        _build.stream_of(value))
     ms_deform_attn_pallas_packed_bwd.launches += 1
     return gvalue.to(value.dtype), gfx, gfy, gatt
 
 
 class _Packed(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, value, fx, fy, att, spatial_shapes):
+    def forward(ctx, value, fx, fy, att, spatial_shapes, window):
         ctx.save_for_backward(value, fx, fy, att)
-        ctx.spatial_shapes = spatial_shapes
-        return _launch_fwd(value, spatial_shapes, fx, fy, att)
+        ctx.geometry = (spatial_shapes, window)
+        return _launch_fwd(value, spatial_shapes, fx, fy, att, window)
 
     @staticmethod
     def backward(ctx, gout):
         value, fx, fy, att = ctx.saved_tensors
-        return (*ms_deform_attn_pallas_packed_bwd(value, ctx.spatial_shapes, fx, fy, att,
-                                                  gout), None)
+        spatial_shapes, window = ctx.geometry
+        return (*ms_deform_attn_pallas_packed_bwd(value, spatial_shapes, fx, fy, att, gout,
+                                                  window), None, None)
 
 
 def ms_deform_attn_pallas_packed(value, spatial_shapes, fx, fy, att, window=8):
     """value [B, S, H, D]; fx, fy, att [B, S, 128] f32 in lane order
     (lv, h, p), fx, fy already clamped to +-lim of the centres
-    (center_lane_tables).  Returns [B, S, H*D] in value.dtype.
+    (center_lane_tables) for the window G = `window`, which the CUDA
+    backward tiles by (ops/msda_windowed.py:window_tiles; positions beyond
+    it stay exact).  Returns [B, S, H*D] in value.dtype.
     Differentiable in value, fx, fy and att: on CUDA the backward is the
     kernel `ms_deform_attn_pallas_packed_bwd`, on the CPU autograd through
     the plain version."""
     if value.device.type == "cpu":
         return ms_deform_attn_pallas_packed_plain(value, spatial_shapes, fx, fy, att, window)
-    return _Packed.apply(value, fx, fy, att, tuple(spatial_shapes))
+    return _Packed.apply(value, fx, fy, att, tuple(spatial_shapes), window)
 
 
 def ms_deform_attn_pallas(value, spatial_shapes, sampling_locations, attention_weights,

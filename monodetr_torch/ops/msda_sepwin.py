@@ -16,7 +16,7 @@ from .. import _build
 from .msda_enc import window_limit
 from .msda_pallas import check_contract
 from .msda_sep import check_loc_args
-from .msda_windowed import ms_deform_attn_windowed
+from .msda_windowed import ms_deform_attn_windowed, window_plan_args, window_tiles
 
 
 def _check(name, value, spatial_shapes, sampling_locations, attention_weights, window):
@@ -29,6 +29,7 @@ def _check(name, value, spatial_shapes, sampling_locations, attention_weights, w
 def _launch_fwd(value, spatial_shapes, sampling_locations, attention_weights, window):
     B, S, H, D, L, P = _check("ms_deform_attn_sepwin", value, spatial_shapes,
                               sampling_locations, attention_weights, window)
+    window_tiles(spatial_shapes, window)  # what the backward cannot tile is refused here
     out = torch.empty(B, S, H * D, dtype=value.dtype, device=value.device)
     _build.launch(
         "mdt_msda_sepwin", value.data_ptr(), sampling_locations.data_ptr(),
@@ -43,11 +44,15 @@ def ms_deform_attn_sepwin_bwd(value, spatial_shapes, sampling_locations, attenti
                               gout, window=8):
     """The backward kernel (csrc/msda_win.cu:msda_sepwin_bwd_kernel) on
     CUDA tensors: (dvalue in value's dtype, dloc f32, dattn f32) for the
-    output gradient `gout` [B, S, H*D].  dvalue is summed in f32 by
-    atomics; dloc is 0 where the position was clamped."""
+    output gradient `gout` [B, S, H*D].  dvalue is summed in f32: per tile
+    of queries in shared memory (ops/msda_windowed.py:window_tiles, which
+    raises ValueError for a pyramid and window that do not fit there), then
+    row by row by vector atomics; dloc is 0 where the position was
+    clamped."""
     name = "ms_deform_attn_sepwin_bwd"
     B, S, H, D, L, P = _check(name, value, spatial_shapes, sampling_locations,
                               attention_weights, window)
+    plan, tiles = window_plan_args(spatial_shapes, window, value.device)
     gout = gout.contiguous()
     if gout.shape != (B, S, H * D) or gout.dtype != value.dtype:
         raise ValueError(f"{name}: gout {tuple(gout.shape)} {gout.dtype}")
@@ -59,7 +64,8 @@ def ms_deform_attn_sepwin_bwd(value, spatial_shapes, sampling_locations, attenti
         "mdt_msda_sepwin_bwd", value.data_ptr(), sampling_locations.data_ptr(),
         attention_weights.data_ptr(), gout.data_ptr(), gvalue.data_ptr(), gloc.data_ptr(),
         gattn.data_ptr(), _build.dtype_code(value.dtype), B, S, H, D, L, P,
-        _build.levels_arg(spatial_shapes), window_limit(window), _build.stream_of(value))
+        _build.levels_arg(spatial_shapes), plan, tiles, window_limit(window),
+        _build.stream_of(value))
     ms_deform_attn_sepwin_bwd.launches += 1
     return gvalue.to(value.dtype), gloc, gattn
 

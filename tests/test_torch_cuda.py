@@ -9,7 +9,10 @@ plain MSDA re-normalising pixel positions for grid_sample), 3e-2 in bf16
 (outputs rounded to bf16 at values of order 1).  Gradients are compared as
 max |a - b| / (1 + max |b|): 1e-4 in f32 (the value gradients are summed by
 atomics in another order), 3e-2 in bf16.  The LAP kernel is bit-identical
-to its plain version.  Kernels 5-7 (the opt-in MSDA impls 'pallas',
+to its plain version.  Kernels 5 and 6 sum their value gradient per tile
+of queries in shared memory and add each staged row to device memory by
+atomics, so it repeats from run to run to 1e-6 of its maximum, not bit for
+bit.  Kernels 5-7 (the opt-in MSDA impls 'pallas',
 'sepwin' and 'dense_fused') are held to the same bounds, and kernel 7's
 value gradient, written without atomics, is bit-identical from run to run.
 """
@@ -30,10 +33,11 @@ from monodetr_torch.ops.msda_dense import (ms_deform_attn_dense, ms_deform_attn_
                                            ms_deform_attn_dense_fused_bwd)
 from monodetr_torch.ops.msda_pallas import (ms_deform_attn_pallas_packed,
                                             ms_deform_attn_pallas_packed_bwd,
-                                            ms_deform_attn_pallas_packed_plain, pack)
+                                            ms_deform_attn_pallas_packed_plain, pack, to_lanes)
 from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd
 from monodetr_torch.ops.msda_sepwin import ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd
-from monodetr_torch.ops.msda_windowed import ms_deform_attn_windowed
+from monodetr_torch.ops.msda_windowed import (backward_occupancy, ms_deform_attn_windowed,
+                                              window_tiles)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -543,3 +547,169 @@ def test_enc_fused_kernels_on_edge_inputs(cuda, dtype, case):
         assert a.dtype == dtype and rel_err(a, b) <= GRAD_TOL[dtype]
     if case == "clamp":
         assert (got[1] == 0).all()  # every offset was clamped
+
+
+def window_edge_case(case, shapes, B, dtype, seed=0, window=6):
+    """((value, loc, attn), gout) for grid queries at the production
+    levels, offsets at odd multiples of 1/32 px (every sample >= 1/32 px off
+    integer positions, ROADMAP.md C3): 'inside' within the window, none
+    clamped; 'border' as 'inside' for the queries within 2 px of a level's
+    border only, pointing outwards, so their samples fall outside the level
+    (zero padding), the other queries' weights 0; 'beyond' 0.5-3 px beyond
+    the window on both axes; 'zero_att' as 'inside' with the weights of
+    every third query and of head 5 set to 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = sum(h * w for h, w in shapes)
+    lim = window_limit(window)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device="cuda")
+    ref = torch.from_numpy(encoder_reference_points(shapes)).cuda()
+    ref = ref[None, :, None, None, None, :]  # normalised centres [S, 2]
+    u = torch.rand(B, S, H, L, P, 2, generator=g, device="cuda")
+    sign = torch.where(torch.rand(u.shape, generator=g, device="cuda") < 0.5, -1.0, 1.0)
+    att = torch.softmax(torch.randn(B, S, H, L * P, generator=g, device="cuda"), -1)
+    att = att.view(B, S, H, L, P).clone()
+    if case == "beyond":
+        off = sign * (lim + 0.5 + u * 2.5)
+    elif case == "border":
+        centre = ref * wh[:, None] - 0.5  # [1, S, 1, L, 1, 2]
+        near_lo, near_hi = centre < 2, centre > wh[:, None] - 3
+        off = torch.where(near_hi, 1.0, -1.0) * u * (lim - 0.1)
+        att = att * (near_lo | near_hi).any(-1).any(-1).any(-1)[..., None, None]
+    else:
+        off = sign * u * (lim - 0.1)
+    if case == "zero_att":
+        att[:, ::3] = 0
+        att[:, :, 5] = 0
+    loc = ref + (torch.floor(off * 16) * 2 + 1) / 32 / wh[:, None]
+    value = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    gout = torch.randn(B, S, H * D, generator=g, device="cuda")
+    return (value, loc, att), gout
+
+
+def unclamped_lanes(shapes, loc, att):
+    """Kernel 5's (fx, fy, att) at the pixel positions of `loc` as they are,
+    not clamped to the window."""
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=loc.device)
+    f = loc * wh[:, None] - 0.5
+    return (to_lanes(f[..., 0]).contiguous(), to_lanes(f[..., 1]).contiguous(),
+            to_lanes(att).contiguous())
+
+
+def check_windowed_pair(shapes, value, loc, att, g, dtype, window=6):
+    """Kernels 5 (at the positions as they are) and 6 (which clamps them),
+    forward within TOL and every gradient within GRAD_TOL of the plain
+    versions.  Returns kernel 6's gradients."""
+    lanes = unclamped_lanes(shapes, loc, att)
+    got = ms_deform_attn_pallas_packed(value, shapes, *lanes, window)
+    want = ms_deform_attn_pallas_packed_plain(value, shapes, *lanes)
+    assert max_err(got, want) <= TOL_OF[dtype]
+    got = grads_of(lambda *x: ms_deform_attn_pallas_packed(x[0], shapes, *x[1:], window),
+                   (value, *lanes), g)
+    want = grads_of(lambda *x: ms_deform_attn_pallas_packed_plain(x[0], shapes, *x[1:]),
+                    (value, *lanes), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+    got = ms_deform_attn_sepwin(value, shapes, loc, att, window)
+    assert max_err(got, ms_deform_attn_windowed(value, shapes, loc, att, window)) <= TOL_OF[dtype]
+    got = grads_of(lambda *x: ms_deform_attn_sepwin(x[0], shapes, x[1], x[2], window),
+                   (value, loc, att), g)
+    want = grads_of(lambda *x: ms_deform_attn_windowed(x[0], shapes, x[1], x[2], window),
+                    (value, loc, att), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["inside", "border", "beyond", "zero_att"])
+def test_windowed_kernels_on_edge_inputs(cuda, dtype, case):
+    """Kernels 5 and 6 at the production levels on the inputs of
+    window_edge_case.  'beyond': kernel 6 clamps every position and passes
+    no location gradient; kernel 5 samples where it is told, outside the
+    rectangles its backward stages, and stays exact."""
+    (value, loc, att), g = window_edge_case(case, FULL_SHAPES, 2, dtype)
+    grads = check_windowed_pair(FULL_SHAPES, value, loc, att, g, dtype)
+    if case == "beyond":
+        assert (grads[1] == 0).all()
+    if case == "inside":
+        assert (grads[1] != 0).float().mean() > 0.9  # nothing was clamped
+    if case == "zero_att":
+        assert grads[1][:, ::3].abs().max() == 0 and grads[2][:, ::3].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_kernel_far_outside_the_level(cuda, dtype):
+    """Kernel 5 at positions no int32 holds (+-3e9, +-1e12 px on every
+    fifth query, x and y in turn): such a sample reads nothing and moves no
+    gradient, as in the plain version, and the other queries stay exact."""
+    (value, loc, att), g = window_edge_case("inside", FULL_SHAPES, 2, dtype)
+    fx, fy, a = unclamped_lanes(FULL_SHAPES, loc, att)
+    fx[:, 0::5] = 3e9
+    fy[:, 1::5] = -3e9
+    fx[:, 2::5] = -1e12
+    fy[:, 3::5] = 1e12
+    lanes = (fx, fy, a)
+    got = ms_deform_attn_pallas_packed(value, FULL_SHAPES, *lanes, 6)
+    want = ms_deform_attn_pallas_packed_plain(value, FULL_SHAPES, *lanes)
+    assert torch.isfinite(got.float()).all() and max_err(got, want) <= TOL_OF[dtype]
+    got = grads_of(lambda *x: ms_deform_attn_pallas_packed(x[0], FULL_SHAPES, *x[1:], 6),
+                   (value, *lanes), g)
+    want = grads_of(lambda *x: ms_deform_attn_pallas_packed_plain(x[0], FULL_SHAPES, *x[1:]),
+                    (value, *lanes), g)
+    for x, y in zip(got, want):
+        assert torch.isfinite(x.float()).all() and rel_err(x, y) <= GRAD_TOL[dtype]
+    assert got[1][:, 0::5].abs().max() == 0 and got[3][:, 2::5].abs().max() == 0
+
+
+@pytest.mark.parametrize("B,window", [(1, 6), (3, 6), (3, 8), (2, 4)])
+def test_windowed_kernels_at_other_batches_and_windows(cuda, B, window):
+    """A batch of 1, an odd batch, and the tilings of other windows (G = 8:
+    a tile half as wide as a pixel of the coarsest level)."""
+    (value, loc, att), g = window_case(FULL_SHAPES, B, torch.float32, 7 + B, window)
+    check_windowed_pair(FULL_SHAPES, value, loc, att, g, torch.float32, window)
+
+
+@pytest.mark.parametrize("kernel", [5, 6])
+def test_windowed_value_gradient_repeats(cuda, kernel):
+    """Two runs of the backward give the same value gradient to 1e-6 of its
+    maximum: within a block the sums have a fixed order, between blocks the
+    rows are added by atomics."""
+    (value, loc, att), g = window_case(FULL_SHAPES, 2, torch.float32, 11)
+    if kernel == 5:
+        lanes = pack(FULL_SHAPES, loc, att, 6)
+        runs = [ms_deform_attn_pallas_packed_bwd(value, FULL_SHAPES, *lanes, g, 6)[0]
+                for _ in range(2)]
+    else:
+        runs = [ms_deform_attn_sepwin_bwd(value, FULL_SHAPES, loc, att, g, 6)[0]
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (runs[0] - runs[1]).abs().max() <= 1e-6 * runs[0].abs().max()
+
+
+def test_windowed_wrappers_refuse_a_window_that_does_not_fit(cuda):
+    """A window whose smallest tile does not fit shared memory raises in
+    the wrapper, forward and backward; nothing else is run in its place."""
+    (value, loc, att), g = window_case(FULL_SHAPES, 1, torch.float32, 3)
+    lanes = pack(FULL_SHAPES, loc, att, 6)
+    before = [f.launches for f in (ms_deform_attn_sepwin, ms_deform_attn_pallas_packed,
+                                   ms_deform_attn_sepwin_bwd, ms_deform_attn_pallas_packed_bwd)]
+    with pytest.raises(ValueError, match="shared memory"):
+        ms_deform_attn_sepwin(value, FULL_SHAPES, loc, att, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms_deform_attn_pallas_packed(value, FULL_SHAPES, *lanes, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms_deform_attn_sepwin_bwd(value, FULL_SHAPES, loc, att, g, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms_deform_attn_pallas_packed_bwd(value, FULL_SHAPES, *lanes, g, 64)
+    assert before == [f.launches for f in (
+        ms_deform_attn_sepwin, ms_deform_attn_pallas_packed, ms_deform_attn_sepwin_bwd,
+        ms_deform_attn_pallas_packed_bwd)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_backward_shares_an_sm(cuda, dtype):
+    """The shared memory the backward asks for is the tiling's, and the
+    runtime places two of its blocks on an SM."""
+    for kernel in (5, 6):
+        blocks, smem = backward_occupancy(kernel, dtype, FULL_SHAPES, 6)
+        assert smem == window_tiles(FULL_SHAPES, 6).smem_bytes and blocks == 2
