@@ -1,6 +1,6 @@
 """Smoke run of monodetr_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--decoder-msda-only]
 
 Phases, one line each (or a few), and any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -8,11 +8,19 @@ Phases, one line each (or a few), and any failure exits non-zero:
   2. build the CUDA kernels from monodetr_torch/csrc;
   3. each forward kernel against its plain PyTorch version on the card at
      the slices' shapes, in f32 (TF32 off) and bf16, with both times;
-  4. each training kernel against its plain version: the two MSDA
-     backwards and the attention forward and backward with dropout
-     (gradients against autograd through the plain versions, f32 at B=2
-     and bf16 at B=16), the dropout's properties, and the LAP kernel
-     bit-identical to its plain version on 528 matching problems;
+     kernels 2 and 7 at the 50 eval queries and the 550 training queries,
+     timed at both;
+  4. each training kernel against its plain version: the MSDA backwards
+     and the attention forward and backward with dropout (gradients
+     against autograd through the plain versions, f32 at B=2 and bf16 at
+     B=16; kernels 2 and 7 at 50 and 550 queries, timed at both, with the
+     device time of every launch their wrappers make), kernels 2 and 7 at
+     32 samples per head and with all 550 queries' samples inside one 16 x
+     16 px patch (a line each with that time beside the uniform one), the
+     dropout's properties, and the LAP kernel bit-identical to its plain
+     version on 528 matching problems, with a second bound beside its bytes
+     bound: the longest problem's chain of dependent steps (counted) times
+     the cycles assumed for a step whose cost row lies in shared memory;
   5. the eval slice: MonoDETR at the full width of configs/monodetr.yaml,
      seeded random weights, `Tester.inference` over 2 batches of 16
      synthetic 384x1280 images in bf16, launch counters checked; then the
@@ -40,13 +48,21 @@ runs of phases 5-7 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
 least time the card could take for the same work at the timed shape
 (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s and its
-operations over the peak rate of their type, `bound_by` says which) and,
-for attention, the time of F.scaled_dot_product_attention at the same
+operations over the peak rate of their type, `bound_by` says which; for
+kernels 2 and 7 the line's numbers are those at 550 queries, and `q50` holds
+the same at 50; `device_ms` the device time of each launch of a backward)
+and, for attention, the time of F.scaled_dot_product_attention at the same
 shapes and dropout (`library_ms`, a yardstick the port never calls; null
 for the kernels that no single PyTorch call computes).  Attention is also
 timed, with the library, at the other dropout rate (forward at 0.1,
 backward at 0), which gives dropout's share of its time.  The last line is
 {"ok": true, "device": {...}}.
+
+With --decoder-msda-only the run is phases 1 and 2 and what phases 3 and 4
+do for kernels 2 and 7, and prints neither report nor last line: under a
+minute for those kernels' times, e.g. of two checkouts one after the other
+on one card (the wrappers it calls are `ms_deform_attn_sep`,
+`ms_deform_attn_dense_fused` and their `_bwd`).
 """
 
 import copy
@@ -107,6 +123,14 @@ HBM_BYTES_S, F32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
 # position gradients follow per sample from those 4 sums) and the 4
 # multiply-adds of the value gradient
 MSDA_FLOPS = {"fwd": 8, "bwd": 16}
+# the LAP function's second bound: cycles ASSUMED (not measured on this
+# card) for one step of a sequential solver's chain at its best, the cost
+# rows in shared memory: a row's load (~30), the update of a lane's two
+# columns (~40), and the argmin's 5 dependent shuffles, each with its compare
+# and select (~35), at the H100 SXM's 1.755 GHz boost clock
+LAP_ROW_CYCLES, LAP_UPDATE_CYCLES, LAP_ARGMIN_CYCLES = 30, 40, 5 * 35
+LAP_STEP_CYCLES = LAP_ROW_CYCLES + LAP_UPDATE_CYCLES + LAP_ARGMIN_CYCLES
+SM_CLOCK_HZ = 1.755e9
 
 KERNELS = {
     "msda_enc_fused": dict(
@@ -116,10 +140,10 @@ KERNELS = {
         fn=ms_deform_attn_enc_fused_bwd, route="cuda", source="monodetr_torch/csrc/msda.cu",
         replaces="monodetr_tpu/ops/msda_enc_pallas.py:597"),
     "msda_sep": dict(
-        fn=ms_deform_attn_sep, route="cuda", source="monodetr_torch/csrc/msda.cu",
+        fn=ms_deform_attn_sep, route="cuda", source="monodetr_torch/csrc/msda_loc.cu",
         replaces="monodetr_tpu/ops/msda_sep_pallas.py:337"),
     "msda_sep_bwd": dict(
-        fn=ms_deform_attn_sep_bwd, route="cuda", source="monodetr_torch/csrc/msda.cu",
+        fn=ms_deform_attn_sep_bwd, route="cuda", source="monodetr_torch/csrc/msda_loc.cu",
         replaces="monodetr_tpu/ops/msda_sep_pallas.py:290"),
     "attention_fwd": dict(
         fn=fused_attention, route="cuda", source="monodetr_torch/csrc/attention.cu",
@@ -143,10 +167,11 @@ KERNELS = {
         fn=ms_deform_attn_sepwin_bwd, route="cuda", source="monodetr_torch/csrc/msda_win.cu",
         replaces="monodetr_tpu/ops/msda_sepwin_pallas.py:458"),
     "msda_dense_fused": dict(
-        fn=ms_deform_attn_dense_fused, route="cuda", source="monodetr_torch/csrc/msda.cu",
+        fn=ms_deform_attn_dense_fused, route="cuda", source="monodetr_torch/csrc/msda_loc.cu",
         replaces="monodetr_tpu/ops/msda_dense_pallas.py:310"),
     "msda_dense_fused_bwd": dict(
-        fn=ms_deform_attn_dense_fused_bwd, route="cuda", source="monodetr_torch/csrc/msda.cu",
+        fn=ms_deform_attn_dense_fused_bwd, route="cuda",
+        source="monodetr_torch/csrc/msda_loc.cu",
         replaces="monodetr_tpu/ops/msda_dense_pallas.py:265"),
 }
 # the opt-in configurations: overrides of configs/monodetr.yaml's model
@@ -306,19 +331,28 @@ def forward_plain(name):
     }[name]
 
 
-def phase_forward_kernels():
+LOC_KERNELS = ("msda_sep", "msda_sep_bwd", "msda_dense_fused", "msda_dense_fused_bwd")
+
+
+FORWARD_KERNELS = ("msda_enc_fused", "msda_sep", "attention_fwd", "msda_pallas", "msda_sepwin",
+                   "msda_dense_fused")
+BACKWARD_KERNELS = ("msda_enc_fused_bwd", "msda_sep_bwd", "attention_bwd", "msda_pallas_bwd",
+                    "msda_sepwin_bwd", "msda_dense_fused_bwd")
+
+
+def phase_forward_kernels(names=FORWARD_KERNELS):
     """Each forward kernel against its plain version in f32 and bf16 at B=2
-    and in bf16 at the batch of 16, where both are also timed; kernel 7 at
-    the 50 eval queries and then at the 550 training queries."""
+    and in bf16 at the batch of 16, where both are also timed; kernels 2 and
+    7 at the 50 eval queries and at the 550 training queries, timed at
+    both (the report's times are those at 550, the others under `q50`)."""
     report = {}
     cases = [(torch.float32, 2, 50), (torch.bfloat16, 2, 50), (torch.bfloat16, 16, 50)]
-    for name in ("msda_enc_fused", "msda_sep", "attention_fwd", "msda_pallas", "msda_sepwin",
-                 "msda_dense_fused"):
+    for name in names:
         fn = KERNELS[name]["fn"]
         gen = torch.Generator(device="cuda").manual_seed(0)
-        errs = []
+        errs, timed = [], {}
         extra = [(torch.float32, 2, TRAIN_QUERIES), (torch.bfloat16, 16, TRAIN_QUERIES)]
-        for dtype, B, q in cases + (extra if name == "msda_dense_fused" else []):
+        for dtype, B, q in cases + (extra if name in LOC_KERNELS else []):
             args = forward_inputs(name, B, dtype, gen, q)
             got = fn(*args)
             want = forward_plain(name)(*args)
@@ -330,36 +364,46 @@ def phase_forward_kernels():
             errs.append(err)
             ok = err <= TOL[dtype] and torch.isfinite(got).all().item()
             tag = f"{str(dtype).replace('torch.', '')} B={B}" + (
-                f" Q={q}" if name in ("msda_sep", "msda_dense_fused") else "")
+                f" Q={q}" if name in LOC_KERNELS else "")
             log(f"kernel {name} {tag}: max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"{name} {tag} disagrees with its plain version")
-        ms = cuda_ms(lambda: fn(*args))
-        plain_ms = cuda_ms(lambda: forward_plain(name)(*args))
-        tensors = [a for a in args if isinstance(a, torch.Tensor)] + [got]
-        library_ms = None
-        if name == "attention_fwd":
-            q, k, v, _, scale, p = args
-            # q, k, v, o and the f32 log-sum-exp the kernel writes for the backward
-            bound_ms, bound_by = attention_bound(
-                "fwd", q, k, nbytes(*tensors) + q[..., 0].numel() * 4)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, dropout_p=p, scale=scale))
-            # dropout's share of the time: the same call at p = 0.1
-            seed = torch.tensor(0, device="cuda")
-            drop_ms = cuda_ms(lambda: fn(q, k, v, seed, scale, 0.1))
-            drop_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, dropout_p=0.1, scale=scale))
-            log(f"kernel attention_fwd {tag} 1920x1920 dropout 0.1: {drop_ms:.3f} ms, "
-                f"F.scaled_dot_product_attention {drop_lib_ms:.3f} ms")
-        else:
-            bound_ms, bound_by = msda_bound("fwd", tensors, B, got.shape[1])
-        log(f"kernel {name} {tag}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})" + (f", F.scaled_dot_product_attention {library_ms:.3f} ms"
-                               if library_ms is not None else ""))
-        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms)
+            if B != 16:
+                continue
+            ms = cuda_ms(lambda: fn(*args))
+            plain_ms = cuda_ms(lambda: forward_plain(name)(*args))
+            tensors = [a for a in args if isinstance(a, torch.Tensor)] + [got]
+            library_ms = None
+            if name == "attention_fwd":
+                q_, k, v, _, scale, p = args
+                # q, k, v, o and the f32 log-sum-exp the kernel writes for the backward
+                bound_ms, bound_by = attention_bound(
+                    "fwd", q_, k, nbytes(*tensors) + q_[..., 0].numel() * 4)
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q_, k, v, dropout_p=p, scale=scale))
+                # dropout's share of the time: the same call at p = 0.1
+                seed = torch.tensor(0, device="cuda")
+                drop_ms = cuda_ms(lambda: fn(q_, k, v, seed, scale, 0.1))
+                drop_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q_, k, v, dropout_p=0.1, scale=scale))
+                log(f"kernel attention_fwd {tag} 1920x1920 dropout 0.1: {drop_ms:.3f} ms, "
+                    f"F.scaled_dot_product_attention {drop_lib_ms:.3f} ms")
+            else:
+                bound_ms, bound_by = msda_bound("fwd", tensors, B, got.shape[1])
+            log(f"kernel {name} {tag}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by})"
+                + (f", F.scaled_dot_product_attention {library_ms:.3f} ms"
+                   if library_ms is not None else ""))
+            timed[q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+            if name in LOC_KERNELS:  # the host's share of so short a call is large
+                parts = device_ms_by_launch(lambda: fn(*args))
+                log(f"kernel {name} {tag} on the card: {by_launch(parts)}")
+                timed[q]["device_ms"] = parts
+        report[name] = dict(max_abs_err=max(errs), **timed[q])
+        if name in LOC_KERNELS:
+            report[name]["q50"] = timed[50]
     return report
 
 
@@ -413,10 +457,8 @@ def backward_case(name, B, dtype, gen, q=TRAIN_QUERIES):
                 (value, off, logits), gout)
     if name == "msda_sep_bwd":
         value = randn(gen, B, S, H, D).to(dtype)
-        loc = sep_locations(gen, B, TRAIN_QUERIES)
-        att = torch.softmax(randn(gen, B, TRAIN_QUERIES, H, L * P), -1)
-        att = att.view(B, TRAIN_QUERIES, H, L, P)
-        gout = randn(gen, B, TRAIN_QUERIES, H * D).to(dtype)
+        loc, att = sep_locations(gen, B, q), weights(gen, B, q)
+        gout = randn(gen, B, q, H * D).to(dtype)
         return (lambda g: ms_deform_attn_sep_bwd(value, LEVELS, loc, att, g),
                 lambda v, lc, a: ms_deform_attn(v, LEVELS, lc, a), (value, loc, att), gout)
     q = randn(gen, B, H, TRAIN_QUERIES, D).to(dtype)
@@ -439,19 +481,51 @@ def backward_case(name, B, dtype, gen, q=TRAIN_QUERIES):
             lambda q_, k_, v_: attention_plain(q_, k_, v_, D ** -0.5, keep, p), (q, k, v), gout)
 
 
-def phase_backward_kernels():
+def device_ms_by_launch(fn, iters=10):
+    """{kernel or memory operation: device ms per call of fn()}, from
+    torch.profiler over `iters` calls: what each launch of a wrapper that
+    makes several costs on the card, without the host's share.  The
+    profiler now and then returns a trace without device events: three
+    tries, then None (these times are a reading, no check, so the run goes
+    on and says "not measured")."""
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.split("<")[0].split("(")[0].split("::")[-1].strip() or e.name
+                out[name] = out.get(name, 0.0) + e.device_time_total / 1000.0 / iters
+        if out:
+            return out
+    return None
+
+
+def by_launch(parts):
+    if parts is None:
+        return "not measured (torch.profiler recorded no device activity)"
+    return ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+
+
+def phase_backward_kernels(names=BACKWARD_KERNELS):
     """The backward kernels (attention with dropout) against autograd
     through the plain versions, f32 at B=2 and bf16 at 16; times at 16.
-    Kernel 7's backward also at the 50 eval queries, and its value
-    gradient, summed with no atomics, the same bits in two runs."""
+    Kernels 2 and 7 at the 50 eval queries and the 550 training queries,
+    timed at both, with the device time of each launch they make (kernel
+    2: the zeroing, the kernel, the cast; kernel 7: the query side, the
+    binning, the value side); kernel 7's value gradient, summed with no
+    atomics, the same bits in two runs at either."""
     report = {}
-    for name in ("msda_enc_fused_bwd", "msda_sep_bwd", "attention_bwd", "msda_pallas_bwd",
-                 "msda_sepwin_bwd", "msda_dense_fused_bwd"):
+    for name in names:
         gen = torch.Generator(device="cuda").manual_seed(1)
-        errs = []
+        errs, timed = [], {}
         cases = [(torch.float32, 2, TRAIN_QUERIES), (torch.bfloat16, 16, TRAIN_QUERIES)]
-        if name == "msda_dense_fused_bwd":
-            cases.insert(0, (torch.float32, 2, 50))
+        if name in LOC_KERNELS:
+            cases = [(torch.float32, 2, 50), (torch.bfloat16, 16, 50)] + cases
         for dtype, B, q in cases:
             kernel, plain, inputs, gout = backward_case(name, B, dtype, gen, q)
             got = kernel(gout)
@@ -459,57 +533,133 @@ def phase_backward_kernels():
             out = plain(*xs)
             want = torch.autograd.grad(out, xs, gout, retain_graph=True)
             tag = f"{str(dtype).replace('torch.', '')} B={B}" + (
-                f" Q={q}" if name in ("msda_sep_bwd", "msda_dense_fused_bwd") else "")
+                f" Q={q}" if name in LOC_KERNELS else "")
             errs.append(check_grads(name, tag, dtype, got, want))
-        if name == "msda_dense_fused_bwd":
-            same = torch.equal(got[0], kernel(gout)[0])
-            log(f"kernel {name} {tag}: dvalue bit-identical in a second run {same} "
-                f"{'ok' if same else 'FAIL'}")
-            if not same:
-                raise RuntimeError(f"{name}: dvalue differs from run to run")
-        ms = cuda_ms(lambda: kernel(gout), iters=10)
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, gout, retain_graph=True),
-                           iters=10)
-        library_ms = None
-        if name == "attention_bwd":
-            q, k = inputs[:2]
-            # q, k, v, dO, dq, dk, dv, o, and lse and delta (f32 [B, H, Tq]):
-            # lse read, delta written and read
-            bound_ms, bound_by = attention_bound(
-                "bwd", q, k, nbytes(*inputs, gout, *got, q) + 3 * q[..., 0].numel() * 4)
+            if name == "msda_dense_fused_bwd":
+                same = torch.equal(got[0], kernel(gout)[0])
+                log(f"kernel {name} {tag}: dvalue bit-identical in a second run {same} "
+                    f"{'ok' if same else 'FAIL'}")
+                if not same:
+                    raise RuntimeError(f"{name}: dvalue differs from run to run")
+            if B != 16:
+                continue
+            ms = cuda_ms(lambda: kernel(gout), iters=10)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, gout, retain_graph=True),
+                               iters=10)
+            library_ms = None
+            if name == "attention_bwd":
+                q_, k = inputs[:2]
+                # q, k, v, dO, dq, dk, dv, o, and lse and delta (f32 [B, H, Tq]):
+                # lse read, delta written and read
+                bound_ms, bound_by = attention_bound(
+                    "bwd", q_, k, nbytes(*inputs, gout, *got, q_) + 3 * q_[..., 0].numel() * 4)
 
-            def sdpa():
-                return F.scaled_dot_product_attention(*xs, dropout_p=0.1, scale=D ** -0.5)
+                def sdpa():
+                    return F.scaled_dot_product_attention(*xs, dropout_p=0.1, scale=D ** -0.5)
 
-            library_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa(), xs, gout), iters=10)
-                          - cuda_ms(sdpa, iters=10))
-            # dropout's share of the time: the same backward at p = 0
-            scale = D ** -0.5
-            with torch.no_grad():
-                out0 = fused_attention(q, k, inputs[2], 0, scale, 0.0)
-            lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, -1)
-            nodrop_ms = cuda_ms(lambda: fused_attention_bwd(
-                q, k, inputs[2], out0, lse, gout, 0, scale, 0.0), iters=10)
+                library_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa(), xs, gout), iters=10)
+                              - cuda_ms(sdpa, iters=10))
+                # dropout's share of the time: the same backward at p = 0
+                scale = D ** -0.5
+                with torch.no_grad():
+                    out0 = fused_attention(q_, k, inputs[2], 0, scale, 0.0)
+                lse = torch.logsumexp(
+                    torch.matmul(q_.float(), k.float().transpose(-1, -2)) * scale, -1)
+                nodrop_ms = cuda_ms(lambda: fused_attention_bwd(
+                    q_, k, inputs[2], out0, lse, gout, 0, scale, 0.0), iters=10)
 
-            def sdpa0():
-                return F.scaled_dot_product_attention(*xs, scale=scale)
+                def sdpa0():
+                    return F.scaled_dot_product_attention(*xs, scale=scale)
 
-            nodrop_lib_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa0(), xs, gout), iters=10)
-                             - cuda_ms(sdpa0, iters=10))
-            log(f"kernel attention_bwd {tag} 550x1920 dropout 0: {nodrop_ms:.3f} ms, "
-                f"F.scaled_dot_product_attention forward+backward minus forward "
-                f"{nodrop_lib_ms:.3f} ms")
-            del out0, lse
-        else:
-            bound_ms, bound_by = msda_bound("bwd", [*inputs, gout, *got], B, gout.shape[1])
-        log(f"kernel {name} bf16 B=16: {ms:.3f} ms, plain (autograd backward) {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})"
-            + (f", F.scaled_dot_product_attention forward+backward minus forward "
-               f"{library_ms:.3f} ms" if library_ms is not None else ""))
-        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms)
+                nodrop_lib_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa0(), xs, gout), iters=10)
+                                 - cuda_ms(sdpa0, iters=10))
+                log(f"kernel attention_bwd {tag} 550x1920 dropout 0: {nodrop_ms:.3f} ms, "
+                    f"F.scaled_dot_product_attention forward+backward minus forward "
+                    f"{nodrop_lib_ms:.3f} ms")
+                del out0, lse
+            else:
+                bound_ms, bound_by = msda_bound("bwd", [*inputs, gout, *got], B, gout.shape[1])
+            log(f"kernel {name} {tag}: {ms:.3f} ms, plain (autograd backward) {plain_ms:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by})"
+                + (f", F.scaled_dot_product_attention forward+backward minus forward "
+                   f"{library_ms:.3f} ms" if library_ms is not None else ""))
+            timed[q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+            if name in LOC_KERNELS:
+                parts = device_ms_by_launch(lambda: kernel(gout))
+                log(f"kernel {name} {tag} on the card, by launch: {by_launch(parts)}")
+                timed[q]["device_ms"] = parts
+        report[name] = dict(max_abs_err=max(errs), **timed[q])
+        if name in LOC_KERNELS:
+            report[name]["q50"] = timed[50]
         del kernel, plain, inputs, gout, got, xs, out, want
     return report
+
+
+def clustered_locations(gen, B, Q):
+    """Normalised locations all inside one 16 x 16 px patch of level 0
+    (pixels 64-80 across, 16-32 down; 8 x 8, 4 x 4 and 2 x 2 px of levels
+    1-3), off integer positions as sep_locations'."""
+    w0, h0 = LEVELS[0][1], LEVELS[0][0]
+    u = torch.rand(B, Q, H, L, P, 2, generator=gen, device="cuda")
+    px = torch.floor(u * 16) + 0.5 + (u * 997 % 1 - 0.5) * 0.8  # in the patch, level 0 px
+    origin = torch.tensor([64.0, 16.0], device="cuda")
+    return (origin + px) / torch.tensor([float(w0), float(h0)], device="cuda")
+
+
+def phase_loc_extras():
+    """Kernels 2 and 7 beyond the slices' shapes.  (1) 32 samples per head
+    (L=4, P=8), both directions, f32 at B=2 against the plain version.
+    (2) The backward with every sample of all 550 queries inside one 16 x
+    16 px patch of level 0, where trained queries cluster: against the
+    plain version (f32 B=2, bf16 B=16), timed at B=16 beside the same
+    shapes' uniform locations: what contention costs kernel 2's atomics
+    and kernel 7's lists."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    wh = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32, device="cuda")
+    B, q, p8 = 2, 50, 8
+    value = randn(gen, B, S, H, D)
+    u = torch.rand(B, q, H, L, p8, 2, generator=gen, device="cuda")
+    px = torch.floor(u * (wh[:, None] + 2) - 2) + 0.5 + (u * 997 % 1 - 0.5) * 0.8
+    loc = (px + 0.5) / wh[:, None]
+    att = torch.softmax(randn(gen, B, q, H, L * p8), -1).view(B, q, H, L, p8)
+    gout = randn(gen, B, q, H * D)
+    xs = [x.detach().requires_grad_(True) for x in (value, loc, att)]
+    want = ms_deform_attn(xs[0], LEVELS, xs[1], xs[2])
+    grads = torch.autograd.grad(want, xs, gout)
+    for name, fwd, bwd in (("msda_sep", ms_deform_attn_sep, ms_deform_attn_sep_bwd),
+                           ("msda_dense_fused", ms_deform_attn_dense_fused,
+                            ms_deform_attn_dense_fused_bwd)):
+        got = fwd(value, LEVELS, loc, att)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = err <= TOL[torch.float32] and torch.isfinite(got).all().item()
+        log(f"kernel {name} float32 B={B} Q={q} L*P=32: max_abs_err {err:.3e} "
+            f"(tol {TOL[torch.float32]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{name} at 32 samples per head disagrees with its plain version")
+        check_grads(f"{name}_bwd", f"float32 B={B} Q={q} L*P=32", torch.float32,
+                    bwd(value, LEVELS, loc, att, gout), grads)
+    del xs, want, grads
+    for dtype, B in ((torch.float32, 2), (torch.bfloat16, 16)):
+        value = randn(gen, B, S, H, D).to(dtype)
+        att = weights(gen, B, TRAIN_QUERIES)
+        gout = randn(gen, B, TRAIN_QUERIES, H * D).to(dtype)
+        near = clustered_locations(gen, B, TRAIN_QUERIES)
+        even = sep_locations(gen, B, TRAIN_QUERIES)
+        xs = [x.detach().requires_grad_(True) for x in (value, near, att)]
+        want = torch.autograd.grad(ms_deform_attn(xs[0], LEVELS, xs[1], xs[2]), xs, gout)
+        tag = f"{str(dtype).replace('torch.', '')} B={B} Q={TRAIN_QUERIES} in one 16x16 px patch"
+        for name, bwd in (("msda_sep_bwd", ms_deform_attn_sep_bwd),
+                          ("msda_dense_fused_bwd", ms_deform_attn_dense_fused_bwd)):
+            check_grads(name, tag, dtype, bwd(value, LEVELS, near, att, gout), want)
+            if B == 16:
+                ms = cuda_ms(lambda: bwd(value, LEVELS, near, att, gout), iters=10)
+                even_ms = cuda_ms(lambda: bwd(value, LEVELS, even, att, gout), iters=10)
+                parts = device_ms_by_launch(lambda: bwd(value, LEVELS, near, att, gout))
+                log(f"kernel {name} {tag}: {ms:.3f} ms, uniform locations {even_ms:.3f} ms; "
+                    f"on the card, by launch: {by_launch(parts)}")
+        del xs, want
 
 
 def phase_window_edges():
@@ -647,7 +797,8 @@ def phase_lap():
     rv = torch.from_numpy(valid)
     cost_d, rv_d = cost.cuda(), rv.cuda()
     got = lap_solve(cost_d, rv_d).cpu()
-    want = lap_solve_plain(cost, rv)
+    steps = torch.zeros(Lr, B, Gq, dtype=torch.int64)
+    want = lap_solve_plain(cost, rv, steps)
     same = torch.equal(got, want)
     worse = 0
     c, g = cost.reshape(-1, N, N).numpy(), got.reshape(-1, N).numpy()
@@ -662,14 +813,29 @@ def phase_lap():
     # the cost rows, validity and assignment once; every valid row's N costs
     # must be compared at least once (f32)
     bound_ms, bound_by = bound(nbytes(cost_d, rv_d, got), 2 * int(n_valid.sum()) * N, F32_FLOPS)
+    # what a sequential solver cannot beat: the longest problem's chain.  A
+    # card holds all 528 problems at once (a warp each, 4 an SM), so a launch
+    # lasts as long as its longest problem: the N rows of the greedy start
+    # and then one row per Dijkstra iteration, each step waiting for the last.
+    # The count is this run's; the cycles per step are assumed, for rows in
+    # shared memory (the kernel reads them from device memory through L2)
+    chain = N + int(steps.max())
+    chain_ms = 1e3 * chain * LAP_STEP_CYCLES / SM_CLOCK_HZ
     log(f"kernel lap 528 problems of 50x50, {int(ties.sum())} with ties: bit-identical to "
         f"lap_solve_plain {same}, costs above scipy's {worse} {'ok' if ok else 'FAIL'}; "
         f"{ms:.3f} ms, plain (on the card) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by})")
+    log(f"kernel lap chain bound: {chain_ms:.4f} ms = {chain} dependent steps in the longest "
+        f"problem ({N} rows of the greedy start + {int(steps.max())} Dijkstra iterations, counted; "
+        f"mean {N + steps.float().mean().item():.1f}) x {LAP_STEP_CYCLES} cycles assumed (a cost "
+        f"row from shared memory {LAP_ROW_CYCLES}, the update {LAP_UPDATE_CYCLES}, a 5-step "
+        f"shuffle argmin {LAP_ARGMIN_CYCLES}) at {SM_CLOCK_HZ / 1e9:.3f} GHz; {Lr * B * Gq} warps "
+        f"over 132 SMs all run at once; the kernel takes {ms / chain_ms:.2f}x that")
     if not ok:
         raise RuntimeError("lap: the kernel disagrees with its plain version or scipy")
     return {"lap": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None)}
+                        bound_by=bound_by, library_ms=None, chain_bound_ms=chain_ms,
+                        longest_chain=chain)}
 
 
 def main_path_counts(per_run, n_runs, label):
@@ -860,13 +1026,21 @@ def phase_train_vs_plain(label="train vs plain", overrides=None):
         raise RuntimeError(f"{label}: the f32 step through the kernels disagrees")
 
 
-def main():
+def main(argv):
+    if argv not in ([], ["--decoder-msda-only"]):
+        sys.exit(f"usage: python3 chip_smoke.py [--decoder-msda-only], not {argv}")
     phase_environment()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        phase_forward_kernels([n for n in FORWARD_KERNELS if n in LOC_KERNELS])
+        phase_backward_kernels([n for n in BACKWARD_KERNELS if n in LOC_KERNELS])
+        phase_loc_extras()
+        return
     report = phase_forward_kernels()
     report.update(phase_backward_kernels())
+    phase_loc_extras()
     windowed_backward = phase_window_edges()
     phase_dropout()
     report.update(phase_lap())
@@ -908,4 +1082,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -36,7 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mdt_msda_enc_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P),
     "mdt_msda_enc_fused_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _F, _P),
-    "mdt_msda_sep": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "mdt_msda_sep": (_P,) * 4 + (_I,) * 8 + (_P, _P),
     "mdt_msda_sep_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
     "mdt_msda_pallas": (_P,) * 5 + (_I,) * 7 + (_P, _P),
     "mdt_msda_pallas_bwd": (_P,) * 9 + (_I,) * 7 + (_P, _P, _P, _F, _P),
@@ -44,7 +44,7 @@ SIGNATURES = {
     "mdt_msda_sepwin_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _P, _P, _F, _P),
     "mdt_msda_win_bwd_occupancy": (_I, _I, _I, _P, _P, _P),
     "mdt_msda_dense_fused": (_P,) * 4 + (_I,) * 8 + (_P, _P),
-    "mdt_msda_dense_fused_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
+    "mdt_msda_dense_fused_bwd": (_P,) * 9 + (_I,) * 8 + (_P, _P, _P),
     "mdt_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_F, _P, _U, _P),
     "mdt_attention_bwd": (_P,) * 10 + (_I,) * 5 + (_F, _P, _U, _P),
     "mdt_attention_keep_mask": (_P, _I, _I, _I, _P, _U, _P),
@@ -161,10 +161,15 @@ def dtype_code(dtype) -> int:
     return codes[dtype]
 
 
-def levels_arg(spatial_shapes):
-    """Host int array (h0, w0, h1, w1, ...) for a kernel's `hw` argument."""
-    flat = [int(x) for hw in spatial_shapes for x in hw]
+@functools.lru_cache(maxsize=64)
+def _levels_arg(flat):
     return (ctypes.c_int * len(flat))(*flat)
+
+
+def levels_arg(spatial_shapes):
+    """Host int array (h0, w0, h1, w1, ...) for a kernel's `hw` argument
+    (one array per pyramid, made once: the kernels only read it)."""
+    return _levels_arg(tuple(int(x) for hw in spatial_shapes for x in hw))
 
 
 def ints_arg(values):

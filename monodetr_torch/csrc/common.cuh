@@ -37,12 +37,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(kFullMask, x, s);
-  return x;
-}
-
 // Whether every pointer is 16-byte aligned (for 16-byte loads and copies).
 inline bool aligned16(std::initializer_list<const void*> ps) {
   for (const void* p : ps)
@@ -50,16 +44,8 @@ inline bool aligned16(std::initializer_list<const void*> ps) {
   return true;
 }
 
-// MSDA kernels 2 and 7 run one warp per (batch, query, head), lane =
-// channel, in blocks of 8 warps: with H = 8 a block is the 8 heads of one
-// query (sample_heads_sum, sample_heads_bwd below).  Kernels 1, 5 and 6
-// run a quad of 4 threads per (batch, query, head) with 16-byte corner
-// loads (Row8, corners, quad_sample_sum below).
-constexpr int kWarpsPerBlock = 8;
-
-inline unsigned blocks_for_warps(int64_t warps) {
-  return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
+// Kernels 1, 2, 5, 6 and 7 run a quad of 4 threads per (batch, query, head)
+// with 16-byte corner loads (Row8, corners, quad_sample_sum below).
 
 // Multi-scale value pyramid: level l holds h[l] x w[l] tokens starting at
 // token start[l] of the flattened [S] axis.
@@ -249,7 +235,8 @@ __device__ __forceinline__ void load_corners(const T* p, int row, const Corners&
 inline bool fits_int32(int S, int H) { return (int64_t)S * H * 64 <= INT32_MAX; }
 
 // The forward of one (b, q, h): thread s of the quad holds the weight and
-// pixel position of samples 4s .. 4s + 3 (sample j = l * P + p, at most 16);
+// pixel position of samples j0 + 4s .. j0 + 4s + 3 (sample j = l * P + p; a
+// call takes at most 16, kernels 2 and 7 call again with j0 = 16);
 // the quad shares them by __shfl_sync, one at a time, and each thread adds
 // its 8 channels of the four corners into acc.  `vb` points at this
 // thread's 8 channels of the head in token 0 of the batch item.  A thread
@@ -262,16 +249,17 @@ template <typename T>
 __device__ __forceinline__ void quad_sample_sum(const T* __restrict__ vb, int row,
                                                 const Levels& lv, int P, const float (&att)[4],
                                                 const float (&fx)[4], const float (&fy)[4],
-                                                int lane, unsigned qmask, float (&acc)[8]) {
+                                                int lane, unsigned qmask, float (&acc)[8],
+                                                int j0 = 0) {
   const int LP = lv.n * P;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {  // sample j is held by thread j / 4 of the quad
-    if (j >= LP) break;
+  for (int j = 0; j < 16; ++j) {  // sample j0 + j is held by thread j / 4 of the quad
+    if (j0 + j >= LP) break;
     const int src = (lane & ~3) | (j >> 2);
     const float a = __shfl_sync(qmask, att[j & 3], src);
     const float x = __shfl_sync(qmask, fx[j & 3], src);
     const float y = __shfl_sync(qmask, fy[j & 3], src);
-    const int l = j / P;
+    const int l = (j0 + j) / P;
     const Corners c = corners(x, y, lv.h[l], lv.w[l]);
     Row8<T> v[4];
     load_corners(vb + lv.start[l] * row, row, c, v);
@@ -574,101 +562,6 @@ __device__ __forceinline__ void win_flush(const float* smem, const WinWarp& t, c
     const float4 v = reinterpret_cast<const float4*>(smem + t.win + r * 32)[part];
     if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
       atomicAdd(reinterpret_cast<float4*>(gl + (y * wl + x) * row) + part, v);
-  }
-}
-
-// ---- the warp core of kernels 2 and 7 ------------------------------------
-//
-// Weighted sum of L*P bilinear samples of one head, computed by one warp.
-//
-// Lane j < L*P holds sample j's attention weight `att` and pixel position
-// (fx, fy) in the level-(j / P) grid (align_corners=False pixel centres);
-// the other lanes' values are ignored.  Each sample is broadcast to the
-// warp, and lane d reads channel d of the four corner tokens: one 32-channel
-// coalesced load per corner.  Corners outside the level contribute zero
-// (grid_sample padding_mode='zeros').  `v` points at channel 0 of this
-// head in token 0 of this batch item; `row` is the stride between tokens.
-// Returns lane d's f32 sum.
-template <typename T>
-__device__ __forceinline__ float sample_heads_sum(const T* __restrict__ v, int64_t row,
-                                                  const Levels& lv, int P, float att,
-                                                  float fx, float fy, int lane) {
-  const int LP = lv.n * P;
-  float acc = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < LP; ++j) {
-    const float a = __shfl_sync(kFullMask, att, j);
-    const float x = __shfl_sync(kFullMask, fx, j);
-    const float y = __shfl_sync(kFullMask, fy, j);
-    const int l = j / P;
-    const int hl = lv.h[l], wl = lv.w[l];
-    const T* base = v + (int64_t)lv.start[l] * row + lane;
-    const float x0f = floorf(x), y0f = floorf(y);
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const float lx = x - x0f, ly = y - y0f;
-    const bool vx0 = x0 >= 0 && x0 < wl, vx1 = x0 + 1 >= 0 && x0 + 1 < wl;
-    const bool vy0 = y0 >= 0 && y0 < hl, vy1 = y0 + 1 >= 0 && y0 + 1 < hl;
-    float s = 0.f;
-    if (vy0 && vx0) s += (1.f - lx) * (1.f - ly) * to_f32(base[((int64_t)y0 * wl + x0) * row]);
-    if (vy0 && vx1) s += lx * (1.f - ly) * to_f32(base[((int64_t)y0 * wl + x0 + 1) * row]);
-    if (vy1 && vx0) s += (1.f - lx) * ly * to_f32(base[((int64_t)(y0 + 1) * wl + x0) * row]);
-    if (vy1 && vx1) s += lx * ly * to_f32(base[((int64_t)(y0 + 1) * wl + x0 + 1) * row]);
-    acc += a * s;
-  }
-  return acc;
-}
-
-// Backward of sample_heads_sum, by the same warp layout.  `g` is lane d's
-// channel of the output gradient.  For each sample j, adds
-// att_j * (corner weight) * g_d to the f32 value gradient `gv` (laid out as
-// `v`) by atomics, unless `gv` is null, and leaves in lane j:
-//   gatt = sum_d g_d * sample_j[d],
-//   gx, gy = att_j * sum_d g_d * d sample_j[d] / d(x, y).
-// The derivative is the one-sided bilinear one at x0 = floor(x) (the
-// convention of F.grid_sample's backward): at an integer position it is
-// v[x0 + 1] - v[x0].  Corners outside the level count as zero.
-template <typename T>
-__device__ __forceinline__ void sample_heads_bwd(const T* __restrict__ v, float* gv, int64_t row,
-                                                 const Levels& lv, int P, float att, float fx,
-                                                 float fy, float g, int lane, float& gatt,
-                                                 float& gx, float& gy) {
-  const int LP = lv.n * P;
-  gatt = gx = gy = 0.f;
-  for (int j = 0; j < LP; ++j) {
-    const float a = __shfl_sync(kFullMask, att, j);
-    const float x = __shfl_sync(kFullMask, fx, j);
-    const float y = __shfl_sync(kFullMask, fy, j);
-    const int l = j / P;
-    const int hl = lv.h[l], wl = lv.w[l];
-    const int64_t off0 = (int64_t)lv.start[l] * row + lane;
-    const float x0f = floorf(x), y0f = floorf(y);
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const float lx = x - x0f, ly = y - y0f;
-    const bool vx0 = x0 >= 0 && x0 < wl, vx1 = x0 + 1 >= 0 && x0 + 1 < wl;
-    const bool vy0 = y0 >= 0 && y0 < hl, vy1 = y0 + 1 >= 0 && y0 + 1 < hl;
-    const int64_t i00 = off0 + ((int64_t)y0 * wl + x0) * row;
-    const int64_t i01 = i00 + row, i10 = i00 + (int64_t)wl * row, i11 = i10 + row;
-    const float v00 = (vy0 && vx0) ? to_f32(v[i00]) : 0.f;
-    const float v01 = (vy0 && vx1) ? to_f32(v[i01]) : 0.f;
-    const float v10 = (vy1 && vx0) ? to_f32(v[i10]) : 0.f;
-    const float v11 = (vy1 && vx1) ? to_f32(v[i11]) : 0.f;
-    const float s = (1.f - lx) * (1.f - ly) * v00 + lx * (1.f - ly) * v01 +
-                    (1.f - lx) * ly * v10 + lx * ly * v11;
-    const float dx = (1.f - ly) * (v01 - v00) + ly * (v11 - v10);
-    const float dy = (1.f - lx) * (v10 - v00) + lx * (v11 - v01);
-    const float sa = warp_sum(g * s), sx = warp_sum(g * dx), sy = warp_sum(g * dy);
-    if (lane == j) {
-      gatt = sa;
-      gx = a * sx;
-      gy = a * sy;
-    }
-    const float ga = a * g;
-    if (gv != nullptr && a != 0.f) {  // the same in every lane: the branch is uniform
-      if (vy0 && vx0) atomicAdd(gv + i00, ga * (1.f - lx) * (1.f - ly));
-      if (vy0 && vx1) atomicAdd(gv + i01, ga * lx * (1.f - ly));
-      if (vy1 && vx0) atomicAdd(gv + i10, ga * (1.f - lx) * ly);
-      if (vy1 && vx1) atomicAdd(gv + i11, ga * lx * ly);
-    }
   }
 }
 

@@ -90,21 +90,45 @@ class Tester:
         dtype = self.model.query_embed.weight.dtype
         self.model.load_state_dict({k: v.to(self.device, dtype) for k, v in sd.items()})
 
+    def epoch_checkpoints(self):
+        """Mode `all`: every checkpoint_epoch_N.pth under the output
+        directory with N >= the config's `checkpoint`, oldest file first
+        (tester.py:83-93)."""
+        start_epoch = int(self.cfg.get("checkpoint", 0))
+        found = []
+        for _, _, files in os.walk(self.output_dir):
+            for f in files:
+                if (f.startswith("checkpoint_epoch_") and f.endswith(".pth")
+                        and f[17:-4].isdigit() and int(f[17:-4]) >= start_epoch):
+                    found.append(os.path.join(self.output_dir, f))
+        found.sort(key=os.path.getmtime)
+        return found
+
     def test(self):
-        """Single-checkpoint evaluation: load the checkpoint if one is on
-        disk, else keep the model's weights; write the KITTI txts and
-        evaluate them (tester.py:48-81).  Returns the decoded results."""
-        if self.cfg.get("mode", "single") != "single":
-            raise NotImplementedError(
-                "tester mode 'all' is not ported (ROADMAP.md section A)")
-        path = self.checkpoint_path()
-        if os.path.exists(path):
-            self.load(path)
+        """Mode `single`, or `all` when the trainer does not keep every
+        epoch (`save_all`): load the checkpoint if one is on disk, else keep
+        the model's weights; write the KITTI txts and evaluate them.  Mode
+        `all` with `save_all`: the same for each of `epoch_checkpoints()`
+        (tester.py:48-98).  Returns the last decoded results (None when
+        `all` finds no checkpoint)."""
+        mode = self.cfg.get("mode", "single")
+        if mode not in ("single", "all"):
+            raise ValueError(f"tester mode {mode!r}; expected 'single' or 'all'")
+        results = None
+        if mode == "single" or not self.train_cfg.get("save_all", False):
+            path = self.checkpoint_path()
+            if os.path.exists(path):
+                self.load(path)
+            else:
+                self.logger.info("no checkpoint on disk (%s); evaluating in-memory "
+                                 "weights" % path)
+            results = self.inference()
+            self.evaluate()
         else:
-            self.logger.info("no checkpoint on disk (%s); evaluating in-memory "
-                             "weights" % path)
-        results = self.inference()
-        self.evaluate()
+            for path in self.epoch_checkpoints():
+                self.load(path)
+                results = self.inference()
+                self.evaluate()
         return results
 
     @torch.no_grad()

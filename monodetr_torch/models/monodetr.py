@@ -200,9 +200,29 @@ def init_params(model: MonoDETR, gen: torch.Generator):
     return model
 
 
+REMAT_SCOPES = {False: (), "none": (), "backbone": ("backbone",), "encoder": ("encoder",),
+                True: ("backbone", "encoder"), "all": ("backbone", "encoder")}
+
+
+def check_remat(remat):
+    """The config's `remat` (monodetr_tpu/models/monodetr.py:64-72): only
+    the values that save every activation build; the rematerialisation
+    scopes are not ported, and anything else is no scope at all."""
+    if remat in REMAT_SCOPES:
+        if not REMAT_SCOPES[remat]:
+            return
+        raise NotImplementedError(
+            f"remat={remat!r}: rematerialisation is not ported, only remat False or "
+            f"'none' (ROADMAP.md section A4)")
+    raise ValueError(
+        f"remat={remat!r}; expected one of "
+        "False/'none', 'backbone', 'encoder', True/'all'")
+
+
 def build_monodetr(cfg, seed=None) -> MonoDETR:
     """Model from the `model:` section of the config, on the CPU in f32;
     with `seed`, every parameter is initialised from torch.Generator(seed)."""
+    check_remat(cfg.get("remat", False))
     model = MonoDETR(
         num_classes=cfg.get("num_classes", 3),
         num_queries=cfg.get("num_queries", 50),

@@ -18,9 +18,12 @@ from .. import _build
 INF = 1e18  # lap_solve's "infinity"
 
 
-def lap_solve_plain(cost, row_valid):
+def lap_solve_plain(cost, row_valid, iterations=None):
     """cost [..., N, N] f32, row_valid [..., N] bool -> col4row [..., N]
-    int32: the column assigned to each valid row, -1 for skipped rows."""
+    int32: the column assigned to each valid row, -1 for skipped rows.
+    `iterations`, an int64 tensor of one element per problem, is added each
+    problem's count of Dijkstra iterations (rows scanned over all its
+    augmenting paths): the length of the solver's sequential chain."""
     *lead, N, _ = cost.shape
     C = cost.reshape(-1, N, N).float()
     rv = row_valid.reshape(-1, N).bool()
@@ -59,6 +62,8 @@ def lap_solve_plain(cost, row_valid):
             go = sink < 0
             if not bool(go.any()):
                 break
+            if iterations is not None:
+                iterations += go.reshape(iterations.shape)
             SR[ar[go], i[go]] = True
             cand = ((min_val[:, None] + C[ar, i]) - u[ar, i][:, None]) - v
             better = (cand < shortest) & ~SC & go[:, None]

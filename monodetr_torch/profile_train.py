@@ -43,6 +43,7 @@ GROUPS = (
     ("msda_pallas", "port: encoder MSDA fwd (kernel 5)"),
     ("msda_sepwin_bwd", "port: encoder MSDA bwd (kernel 6)"),
     ("msda_sepwin", "port: encoder MSDA fwd (kernel 6)"),
+    ("msda_dense_fused_bwd_bin", "port: decoder MSDA bwd, binning (kernel 7)"),
     ("msda_dense_fused_bwd_value", "port: decoder MSDA bwd, value side (kernel 7)"),
     ("msda_dense_fused", "port: decoder MSDA fwd (kernel 7)"),
     ("msda_sep_bwd", "port: decoder MSDA bwd (kernel 2; kernel 7's query side)"),

@@ -15,6 +15,11 @@ atomics, so it repeats from run to run to 1e-6 of its maximum, not bit for
 bit.  Kernels 5-7 (the opt-in MSDA impls 'pallas',
 'sepwin' and 'dense_fused') are held to the same bounds, and kernel 7's
 value gradient, written without atomics, is bit-identical from run to run.
+Kernels 2 and 7 are also held to their plain version at 32 samples per head,
+at batches of 1 and 3, on and beyond a level's border, at positions no
+int32 holds, with zero weights, with every sample in one pixel, and on a
+level of more tiles than kernel 7's binning sorts at a time; a pyramid whose
+tokens pass 32-bit offsets is refused.
 """
 
 import numpy as np
@@ -34,7 +39,7 @@ from monodetr_torch.ops.msda_dense import (ms_deform_attn_dense, ms_deform_attn_
 from monodetr_torch.ops.msda_pallas import (ms_deform_attn_pallas_packed,
                                             ms_deform_attn_pallas_packed_bwd,
                                             ms_deform_attn_pallas_packed_plain, pack, to_lanes)
-from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd
+from monodetr_torch.ops.msda_sep import fits_int32, ms_deform_attn_sep, ms_deform_attn_sep_bwd
 from monodetr_torch.ops.msda_sepwin import ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd
 from monodetr_torch.ops.msda_windowed import (backward_occupancy, ms_deform_attn_windowed,
                                               window_tiles)
@@ -713,3 +718,154 @@ def test_windowed_backward_shares_an_sm(cuda, dtype):
     for kernel in (5, 6):
         blocks, smem = backward_occupancy(kernel, dtype, FULL_SHAPES, 6)
         assert smem == window_tiles(FULL_SHAPES, 6).smem_bytes and blocks == 2
+
+
+LOC_KERNELS = {
+    "sep": (ms_deform_attn_sep, ms_deform_attn_sep_bwd),
+    "dense_fused": (ms_deform_attn_dense_fused, ms_deform_attn_dense_fused_bwd),
+}
+
+
+def loc_edge_case(case, dtype, seed=0):
+    """((value, loc, attn), gout) for decoder queries at the production
+    levels, every sample >= 0.1 px off integer positions (ROADMAP.md C3):
+    'lp32' 8 points a level (32 samples per head); 'b1' and 'b3' batches of
+    1 and 3; 'border' every sample within 1.5 px of a level's border, half
+    of them outside; 'far' as 'b3' with +-3e9 and +-1e12 px on every fifth
+    query (x and y in turn); 'zero_att' the weights of every third query
+    and of head 5 zero; 'one_pixel' all 550 queries' samples in one pixel
+    of each level."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = {"b1": 1, "b3": 3, "far": 3}.get(case, 2)
+    q = 550 if case == "one_pixel" else 77
+    p = 8 if case == "lp32" else P
+    S = sum(h * w for h, w in FULL_SHAPES)
+    wh = torch.tensor([[w, h] for h, w in FULL_SHAPES], dtype=torch.float32, device="cuda")
+    u = torch.rand(B, q, H, L, p, 2, generator=g, device="cuda")
+    jitter = (u * 997 % 1 - 0.5) * 0.8
+    if case == "border":
+        side = torch.rand(u.shape, generator=g, device="cuda") < 0.5
+        near = torch.floor(u * 3) - 2  # pixel -2, -1 or 0 from the border
+        px = torch.where(side, near, wh[:, None] - 1 - near) + 0.5 + jitter
+    elif case == "one_pixel":
+        px = torch.floor(wh[:, None] * 0.4) + 0.5 + jitter
+    else:
+        px = torch.floor(u * (wh[:, None] + 2) - 2) + 0.5 + jitter
+    if case == "far":
+        px[:, 0::5, ..., 0] = 3e9
+        px[:, 1::5, ..., 1] = -3e9
+        px[:, 2::5, ..., 0] = -1e12
+        px[:, 3::5, ..., 1] = 1e12
+    loc = (px + 0.5) / wh[:, None]
+    att = torch.softmax(torch.randn(B, q, H, L * p, generator=g, device="cuda"), -1)
+    att = att.view(B, q, H, L, p).clone()
+    if case == "zero_att":
+        att[:, ::3] = 0
+        att[:, :, 5] = 0
+    value = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    gout = torch.randn(B, q, H * D, generator=g, device="cuda")
+    return (value, loc, att), gout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["sep", "dense_fused"])
+@pytest.mark.parametrize("case", ["lp32", "b1", "b3", "border", "far", "zero_att", "one_pixel"])
+def test_loc_kernels_on_edge_inputs(cuda, dtype, kernel, case):
+    """Kernels 2 and 7 forward within TOL and backward within GRAD_TOL of
+    the plain version on the inputs of loc_edge_case; kernel 7's value
+    gradient the same bits in a second run on every one of them."""
+    fwd, bwd = LOC_KERNELS[kernel]
+    (value, loc, att), g = loc_edge_case(case, dtype)
+    got = fwd(value, FULL_SHAPES, loc, att)
+    assert max_err(got, ms_deform_attn(value, FULL_SHAPES, loc, att)) <= TOL_OF[dtype]
+    got = grads_of(lambda *x: fwd(x[0], FULL_SHAPES, x[1], x[2]), (value, loc, att), g)
+    want = grads_of(lambda *x: ms_deform_attn(x[0], FULL_SHAPES, x[1], x[2]), (value, loc, att), g)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+    if case == "far":  # such a sample reads nothing and moves no gradient
+        assert got[1][:, 0::5, ..., 0].abs().max() == 0
+        assert got[1][:, 2::5, ..., 0].abs().max() == 0
+    if case == "zero_att":
+        assert got[1][:, ::3].abs().max() == 0 and got[2][:, ::3].abs().max() > 0
+    if kernel == "dense_fused":
+        runs = [bwd(value, FULL_SHAPES, loc, att, g.to(dtype))[0] for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["sep", "dense_fused"])
+def test_loc_kernels_on_a_level_of_many_tiles(cuda, dtype, kernel):
+    """A level of 300 x 260 pixels is 33 x 38 = 1,254 tiles of kernel 7's
+    value side, more than its binning kernel sorts at a time (1,024): it
+    takes them in two slabs.  Samples uniform over the level and 2 px
+    around it, so both slabs and the tiles on either side of their border
+    (tile row 31: pixel rows 248-255) hold entries.  Forward and backward of
+    both kernels against the plain version; kernel 7's value gradient the
+    same bits in a second run, and not 0 in the second slab."""
+    shapes = ((300, 260), (16, 9))
+    fwd, bwd = LOC_KERNELS[kernel]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    B, q, S = 2, 300, sum(h * w for h, w in shapes)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device="cuda")
+    u = torch.rand(B, q, H, 2, P, 2, generator=g, device="cuda")
+    px = torch.floor(u * (wh[:, None] + 2) - 2) + 0.5 + (u * 997 % 1 - 0.5) * 0.8
+    loc = (px + 0.5) / wh[:, None]
+    att = torch.softmax(torch.randn(B, q, H, 2 * P, generator=g, device="cuda"), -1)
+    att = att.view(B, q, H, 2, P)
+    value = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    gout = torch.randn(B, q, H * D, generator=g, device="cuda")
+    got = fwd(value, shapes, loc, att)
+    assert max_err(got, ms_deform_attn(value, shapes, loc, att)) <= TOL_OF[dtype]
+    got = grads_of(lambda *x: fwd(x[0], shapes, x[1], x[2]), (value, loc, att), gout)
+    want = grads_of(lambda *x: ms_deform_attn(x[0], shapes, x[1], x[2]), (value, loc, att), gout)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= GRAD_TOL[dtype]
+    assert got[0][:, 256 * 260:300 * 260].abs().max() > 0
+    if kernel == "dense_fused":
+        runs = [bwd(value, shapes, loc, att, gout.to(dtype))[0] for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("kernel", ["sep", "dense_fused"])
+def test_loc_wrappers_refuse_tokens_past_32_bit_offsets(cuda, kernel):
+    """One level of 2048 x 2048 tokens of 8 heads: a batch item's S * H * 64
+    passes INT32_MAX, which the kernels' 32-bit offsets do not reach.  Both
+    directions raise and launch nothing."""
+    rows = width = 2048
+    shapes, S = ((rows, width),), rows * width
+    assert not fits_int32(S, H) and fits_int32(S - 1, H)
+    fwd, bwd = LOC_KERNELS[kernel]
+    value = torch.empty(1, S, H, D, device=cuda, dtype=torch.bfloat16)
+    loc = torch.rand(1, 4, H, 1, P, 2, device=cuda)
+    att = torch.full((1, 4, H, 1, P), 1 / P, device=cuda)
+    before = (fwd.launches, bwd.launches)
+    with pytest.raises(ValueError, match="32-bit offsets"):
+        fwd(value, shapes, loc, att)
+    with pytest.raises(ValueError, match="32-bit offsets"):
+        bwd(value, shapes, loc, att, torch.zeros(1, 4, H * D, device=cuda, dtype=torch.bfloat16))
+    assert before == (fwd.launches, bwd.launches)
+
+
+def test_loc_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    S = sum(h * w for h, w in SHAPES)
+    value = torch.zeros(1, S, H, D, device=cuda)
+    loc = torch.rand(1, 5, H, L, 9, 2, device=cuda)  # 36 samples per head
+    att = torch.full((1, 5, H, L, 9), 1 / 36, device=cuda)
+    before = [f.launches for pair in LOC_KERNELS.values() for f in pair]
+    for fwd, bwd in LOC_KERNELS.values():
+        with pytest.raises(ValueError, match="samples per head"):
+            fwd(value, SHAPES, loc, att)
+        with pytest.raises(ValueError, match="samples per head"):
+            bwd(value, SHAPES, loc, att, torch.zeros(1, 5, H * D, device=cuda))
+        with pytest.raises(ValueError, match="32 channels"):
+            fwd(torch.zeros(1, S, H, 16, device=cuda), SHAPES, loc[..., :4, :].contiguous(),
+                att[..., :4].contiguous())
+    assert before == [f.launches for pair in LOC_KERNELS.values() for f in pair]
+
+
+def test_remat_scopes_are_refused_by_name(cuda):
+    """`model.remat: encoder` is not ported: building raises, on the card as
+    on the CPU, rather than training without rematerialisation."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section A4"):
+        build_monodetr(dict(remat="encoder", enc_layers=1, dec_layers=1), seed=0).to(cuda)
+    build_monodetr(dict(remat="none", enc_layers=1, dec_layers=1), seed=0).to(cuda)

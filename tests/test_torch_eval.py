@@ -268,3 +268,63 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     proc = _run([script], tmp_path, env)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _mode_tester(tmp_path, mode, checkpoint, save_all):
+    """A Tester whose load, inference and evaluate only record: (tester,
+    the basenames it loaded, in order)."""
+    cfg = {"mode": mode, "checkpoint": checkpoint}
+    train_cfg = {"save_all": save_all, "save_path": str(tmp_path) + "/"}
+    t = torch_tester.Tester(cfg, None, None, None, train_cfg, "m", device="cpu")
+    loaded = []
+    t.load = lambda path: loaded.append(os.path.basename(path))
+    t.inference = lambda: list(loaded)
+    t.evaluate = lambda: None
+    os.makedirs(t.output_dir)
+    return t, loaded
+
+
+def _touch(d, name, mtime):
+    p = os.path.join(d, name)
+    with open(p, "wb") as f:
+        f.write(b"x")
+    os.utime(p, (mtime, mtime))
+
+
+def test_tester_mode_all_visits_epoch_checkpoints_by_mtime(tmp_path):
+    """tests/test_tester_modes.py's situation: N below `checkpoint` and
+    names without a number are skipped; file age, not N, gives the order."""
+    t, loaded = _mode_tester(tmp_path, "all", 10, True)
+    for name, mtime in (("checkpoint_epoch_5.pth", 100), ("checkpoint.pth", 150),
+                        ("checkpoint_best.pth", 160), ("checkpoint_epoch_x.pth", 170),
+                        ("checkpoint_epoch_30.pth", 200), ("checkpoint_epoch_10.pth", 300),
+                        ("checkpoint_epoch_20.pth", 250)):
+        _touch(t.output_dir, name, mtime)
+    want = ["checkpoint_epoch_30.pth", "checkpoint_epoch_20.pth", "checkpoint_epoch_10.pth"]
+    assert t.test() == want and loaded == want
+
+
+@pytest.mark.parametrize("mode", ["all", "single"])
+def test_tester_mode_all_without_save_all_is_single(tmp_path, mode):
+    t, loaded = _mode_tester(tmp_path, mode, 0, False)
+    _touch(t.output_dir, "checkpoint_best.pth", 100)
+    _touch(t.output_dir, "checkpoint_epoch_3.pth", 120)
+    t.test()
+    assert loaded == ["checkpoint_best.pth"]
+
+
+def test_tester_single_mode_with_save_all_takes_the_epoch_checkpoint(tmp_path):
+    t, loaded = _mode_tester(tmp_path, "single", 7, True)
+    _touch(t.output_dir, "checkpoint_epoch_7.pth", 100)
+    _touch(t.output_dir, "checkpoint_best.pth", 110)
+    t.test()
+    assert loaded == ["checkpoint_epoch_7.pth"]
+
+
+@pytest.mark.parametrize("save_all", [False, True])
+def test_tester_refuses_a_misspelt_mode(tmp_path, save_all):
+    t, loaded = _mode_tester(tmp_path, "al", 0, save_all)
+    _touch(t.output_dir, "checkpoint_best.pth", 100)
+    with pytest.raises(ValueError, match="'al'"):
+        t.test()
+    assert loaded == []

@@ -320,3 +320,30 @@ def test_eval_forward_matches_jax(weights, jax_forwards, impls):
         assert np.isfinite(got[k].numpy()).all()
     for ga, wa in zip(got["aux_outputs"], want["aux_outputs"]):
         close(ga["pred_boxes"], wa["pred_boxes"], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("remat, outcome", [
+    (False, "builds"), ("none", "builds"),
+    ("backbone", NotImplementedError), ("encoder", NotImplementedError),
+    (True, NotImplementedError), ("all", NotImplementedError),
+    ("decoder", ValueError), ("Encoder", ValueError), (None, ValueError)])
+def test_remat_is_validated_as_the_jax_model_does(remat, outcome):
+    """The JAX model takes remat False / 'none' / 'backbone' / 'encoder' /
+    True / 'all' and raises ValueError on anything else; the port builds
+    only the two values without rematerialisation, refuses the real scopes
+    by name and raises the JAX model's ValueError for the rest."""
+    tiny = dict(CFG, enc_layers=1, dec_layers=1, remat=remat)
+    jax_model = jax_build(dict(tiny, dtype="fp32"))
+    if outcome is ValueError:
+        with pytest.raises(ValueError) as jax_err:
+            jax_model._remat_in("encoder")
+        with pytest.raises(ValueError) as err:
+            build_monodetr(tiny)
+        assert str(err.value) == str(jax_err.value)
+    elif outcome is NotImplementedError:
+        assert jax_model._remat_in("encoder") or jax_model._remat_in("backbone")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section A4"):
+            build_monodetr(tiny)
+    else:
+        assert not jax_model._remat_in("encoder") and not jax_model._remat_in("backbone")
+        assert build_monodetr(tiny).dec_layers == 1

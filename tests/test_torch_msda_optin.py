@@ -326,7 +326,11 @@ def test_profile_groups_name_each_msda_kernel():
             "msda_pallas_kernel": "kernel 5", "msda_pallas_bwd_kernel": "kernel 5",
             "msda_sepwin_kernel": "kernel 6", "msda_sepwin_bwd_kernel": "kernel 6",
             "msda_dense_fused_kernel": "kernel 7",
-            "msda_dense_fused_bwd_value_kernel": "kernel 7"}
+            "msda_dense_fused_bwd_value_kernel": "kernel 7",
+            "msda_dense_fused_bwd_bin_kernel": "kernel 7"}
     for name, kernel in want.items():
         group = group_of(f"void mdt::{name}<__nv_bfloat16>(__nv_bfloat16 const*, int)")
         assert kernel in group and ("bwd" in name) == ("bwd" in group), (name, group)
+    groups = {group_of(f"void mdt::msda_dense_fused_bwd_{part}_kernel<float>()")
+              for part in ("bin", "value")}
+    assert len(groups) == 2  # kernel 7's binning and value side are read apart

@@ -198,3 +198,20 @@ def test_plain_dropout_statistics():
     assert not torch.equal(m(q, q, q, torch.Generator().manual_seed(0)), m(q, q, q))
     assert torch.equal(m(q, q, q, torch.Generator().manual_seed(0)),
                        m(q, q, q, torch.Generator().manual_seed(0)))
+
+
+def test_lap_plain_counts_its_dijkstra_iterations():
+    """`iterations` receives each problem's count of scanned rows over all
+    its augmenting paths and leaves the assignment as it is: at least one
+    per row the greedy start left unmatched, none for a problem it solved."""
+    rng = np.random.RandomState(11)
+    cost = torch.from_numpy(rng.rand(6, 9, 9).astype(np.float32))
+    cost[0] = torch.eye(9) * -1 + 1  # the greedy start matches every row
+    valid = torch.ones(6, 9, dtype=torch.bool)
+    valid[5, 4:] = False
+    steps = torch.zeros(6, dtype=torch.int64)
+    got = lap_solve_plain(cost, valid, steps)
+    assert torch.equal(got, lap_solve_plain(cost, valid))
+    greedy_free = [len(set(range(9))) - len(set(cost[p].argmin(1).tolist())) for p in range(5)]
+    assert steps[0] == 0 and all(int(steps[p]) >= greedy_free[p] for p in range(5))
+    assert steps[1:5].min() > 0
