@@ -1,6 +1,6 @@
 """Smoke run of monodetr_torch on one CUDA card.
 
-    python3 chip_smoke.py [--decoder-msda-only]
+    python3 chip_smoke.py [--decoder-msda-only | --lap-only]
 
 Phases, one line each (or a few), and any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -18,9 +18,13 @@ Phases, one line each (or a few), and any failure exits non-zero:
      32 samples per head and with all 550 queries' samples inside one 16 x
      16 px patch (a line each with that time beside the uniform one), the
      dropout's properties, and the LAP kernel bit-identical to its plain
-     version on 528 matching problems, with a second bound beside its bytes
-     bound: the longest problem's chain of dependent steps (counted) times
-     the cycles assumed for a step whose cost row lies in shared memory;
+     version on 528 matching problems and on its edge cases
+     (lap_edge_cases), with its cycles per Dijkstra iteration (one launch
+     of the longest problem less one of a problem the greedy start
+     solves) and a second bound beside its bytes bound: the longest
+     problem's chain of dependent steps (counted) times a step's cycles,
+     from the latencies of its links measured on the card by clock64
+     (ops/lap.py:lap_step_latencies);
   5. the eval slice: MonoDETR at the full width of configs/monodetr.yaml,
      seeded random weights, `Tester.inference` over 2 batches of 16
      synthetic 384x1280 images in bf16, launch counters checked; then the
@@ -42,15 +46,27 @@ Phases, one line each (or a few), and any failure exits non-zero:
      window: kernel 6 clamps them and masks their gradient, kernel 5
      samples them as they are, outside the rectangles its backward stages
      in shared memory), and a line gives that backward's shared-memory
-     bytes and blocks per SM.
+     bytes and blocks per SM;
+  8. the stress configuration (bench.py's BENCH_BACKBONE=resnet101
+     BENCH_H=768 BENCH_W=2560 BENCH_BS=2 BENCH_REMAT=1; the default impls,
+     bf16): 3 train steps with their launch counters, then 2 with remat
+     off, the peak memory and ms/step of each; one `Tester.inference`
+     batch, then the f32 forward at B=2 through the kernels against the
+     plain versions; one f32 step at B=1 without dropout through the
+     kernels against the plain versions (kernels 1-4 at this path's shapes:
+     40,800 encoder tokens, attention over 7,680); and one f32 step at B=1
+     with dropout 0.1 with remat and without, from one generator seed: the
+     losses and the generator's final state bit-equal, every gradient
+     within REMAT_GRAD_TOL.
 The kernel report (JSON) sums each kernel's launches over the main-path
-runs of phases 5-7 and fails if one of them is 0; it is the second-to-last
+runs of phases 5-8 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
 least time the card could take for the same work at the timed shape
 (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the peak rate of their type, `bound_by` says which; for
 kernels 2 and 7 the line's numbers are those at 550 queries, and `q50` holds
-the same at 50; `device_ms` the device time of each launch of a backward)
+the same at 50; `device_ms` the device time of each launch of a backward;
+for LAP also its chain bound and cycles per Dijkstra iteration)
 and, for attention, the time of F.scaled_dot_product_attention at the same
 shapes and dropout (`library_ms`, a yardstick the port never calls; null
 for the kernels that no single PyTorch call computes).  Attention is also
@@ -59,10 +75,12 @@ backward at 0), which gives dropout's share of its time.  The last line is
 {"ok": true, "device": {...}}.
 
 With --decoder-msda-only the run is phases 1 and 2 and what phases 3 and 4
-do for kernels 2 and 7, and prints neither report nor last line: under a
-minute for those kernels' times, e.g. of two checkouts one after the other
-on one card (the wrappers it calls are `ms_deform_attn_sep`,
-`ms_deform_attn_dense_fused` and their `_bwd`).
+do for kernels 2 and 7, and with --lap-only phases 1 and 2 and the LAP
+part of phase 4; neither prints the report or the last line.  Each is a
+minute or less for those kernels' times, e.g. of two checkouts one after
+the other on one card (the wrappers they call are `ms_deform_attn_sep`,
+`ms_deform_attn_dense_fused` and their `_bwd`, and `lap_solve`; --lap-only
+also needs `lap_step_latencies` and `lap_edge_cases` in ops/lap.py).
 """
 
 import copy
@@ -82,7 +100,8 @@ sys.path.insert(0, REPO)
 from monodetr_torch import _build  # noqa: E402
 from monodetr_torch.ops.attention import (  # noqa: E402
     attention_keep_mask, attention_plain, fused_attention, fused_attention_bwd)
-from monodetr_torch.ops.lap import lap_solve, lap_solve_plain  # noqa: E402
+from monodetr_torch.ops.lap import (  # noqa: E402
+    lap_edge_cases, lap_solve, lap_solve_plain, lap_step_latencies)
 from monodetr_torch.models.transformer import encoder_reference_points  # noqa: E402
 from monodetr_torch.ops.msda import ms_deform_attn  # noqa: E402
 from monodetr_torch.ops.msda_dense import (  # noqa: E402
@@ -123,14 +142,6 @@ HBM_BYTES_S, F32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
 # position gradients follow per sample from those 4 sums) and the 4
 # multiply-adds of the value gradient
 MSDA_FLOPS = {"fwd": 8, "bwd": 16}
-# the LAP function's second bound: cycles ASSUMED (not measured on this
-# card) for one step of a sequential solver's chain at its best, the cost
-# rows in shared memory: a row's load (~30), the update of a lane's two
-# columns (~40), and the argmin's 5 dependent shuffles, each with its compare
-# and select (~35), at the H100 SXM's 1.755 GHz boost clock
-LAP_ROW_CYCLES, LAP_UPDATE_CYCLES, LAP_ARGMIN_CYCLES = 30, 40, 5 * 35
-LAP_STEP_CYCLES = LAP_ROW_CYCLES + LAP_UPDATE_CYCLES + LAP_ARGMIN_CYCLES
-SM_CLOCK_HZ = 1.755e9
 
 KERNELS = {
     "msda_enc_fused": dict(
@@ -177,18 +188,33 @@ KERNELS = {
 # the opt-in configurations: overrides of configs/monodetr.yaml's model
 CONFIG_A = {"msda_impl": "pallas", "dec_msda_impl": "dense_fused"}
 CONFIG_B = {"msda_impl": "sepwin", "dec_msda_impl": "sep"}
+# the stress configuration (bench.py:61-62, BASELINE.json config 4): the
+# default impls on ResNet-101 at twice the input size, batch 2, remat on
+STRESS = {"backbone": "resnet101", "remat": True}
+STRESS_SIZE, STRESS_BATCH = (768, 2560), 2
+# a gradient of the step with remat against the step without, max |a - b| /
+# max |b| per tensor: the recompute repeats the kernels' sums, and the
+# atomics of kernels 1 and 2 (and cuDNN's weight gradients) add in another
+# order from run to run (~1e-7 relative); a dropout mask drawn anew would
+# move a gradient by ~1e-1
+REMAT_GRAD_TOL = 1e-5
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters=20):
-    """Mean device time of fn() in ms, by CUDA events after a warm-up."""
+def cuda_ms(fn, iters=20, queued=False):
+    """Mean device time of fn() in ms, by CUDA events after a warm-up.
+    queued: the launches queue behind a spin of the card (torch.cuda._sleep),
+    so the card, not the host, sets the pace even when each launch is
+    shorter than its host work."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -769,11 +795,30 @@ def phase_dropout():
         raise RuntimeError("dropout: a property does not hold")
 
 
+def sm_clock_hz():
+    """The SM clock now, from a spin of a known number of cycles
+    (torch.cuda._sleep counts clock64) timed by CUDA events."""
+    cycles = 200_000_000
+    torch.cuda._sleep(cycles // 10)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / (start.elapsed_time(end) * 1e-3)
+
+
 def phase_lap():
     """The LAP kernel on 528 problems (3 layers x 16 images x 11 groups of
     50 queries) from matching costs of random outputs and targets with 0-50
     valid rows, a third of them quantised to 0.25 for ties: bit-identical
-    to lap_solve_plain, and as cheap as scipy's assignment."""
+    to lap_solve_plain, and as cheap as scipy's assignment; then
+    bit-identical on lap_edge_cases.  Then its cycles per Dijkstra step:
+    one launch holding only the longest problem less one holding a problem
+    the greedy start solves, over the longest's iterations, times the SM
+    clock.  Then its chain bound from the latencies of a step's links,
+    measured on this card (`lap_step_latencies`)."""
     from scipy.optimize import linear_sum_assignment
 
     from monodetr_torch.models.matcher import BIG_COST, matching_cost
@@ -809,33 +854,66 @@ def phase_lap():
                                     c[p, :n][r, cols].astype(np.float64).sum(), rtol=1e-6)
     ms = cuda_ms(lambda: lap_solve(cost_d, rv_d))
     plain_ms = cuda_ms(lambda: lap_solve_plain(cost_d, rv_d), iters=2)
+    edge = []
+    for name, ec, ev in lap_edge_cases():
+        ok_case = torch.equal(lap_solve(torch.from_numpy(ec).cuda(), torch.from_numpy(ev).cuda())
+                              .cpu(), lap_solve_plain(torch.from_numpy(ec), torch.from_numpy(ev)))
+        edge.append(f"{name} {'ok' if ok_case else 'FAIL'}")
+        same = same and ok_case
     ok = same and worse == 0
     # the cost rows, validity and assignment once; every valid row's N costs
     # must be compared at least once (f32)
     bound_ms, bound_by = bound(nbytes(cost_d, rv_d, got), 2 * int(n_valid.sum()) * N, F32_FLOPS)
-    # what a sequential solver cannot beat: the longest problem's chain.  A
-    # card holds all 528 problems at once (a warp each, 4 an SM), so a launch
-    # lasts as long as its longest problem: the N rows of the greedy start
-    # and then one row per Dijkstra iteration, each step waiting for the last.
-    # The count is this run's; the cycles per step are assumed, for rows in
-    # shared memory (the kernel reads them from device memory through L2)
-    chain = N + int(steps.max())
-    chain_ms = 1e3 * chain * LAP_STEP_CYCLES / SM_CLOCK_HZ
     log(f"kernel lap 528 problems of 50x50, {int(ties.sum())} with ties: bit-identical to "
         f"lap_solve_plain {same}, costs above scipy's {worse} {'ok' if ok else 'FAIL'}; "
-        f"{ms:.3f} ms, plain (on the card) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
-    log(f"kernel lap chain bound: {chain_ms:.4f} ms = {chain} dependent steps in the longest "
-        f"problem ({N} rows of the greedy start + {int(steps.max())} Dijkstra iterations, counted; "
-        f"mean {N + steps.float().mean().item():.1f}) x {LAP_STEP_CYCLES} cycles assumed (a cost "
-        f"row from shared memory {LAP_ROW_CYCLES}, the update {LAP_UPDATE_CYCLES}, a 5-step "
-        f"shuffle argmin {LAP_ARGMIN_CYCLES}) at {SM_CLOCK_HZ / 1e9:.3f} GHz; {Lr * B * Gq} warps "
-        f"over 132 SMs all run at once; the kernel takes {ms / chain_ms:.2f}x that")
+        f"{ms:.4f} ms, plain (on the card) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); edge cases bit-identical: {', '.join(edge)}")
     if not ok:
         raise RuntimeError("lap: the kernel disagrees with its plain version or scipy")
-    return {"lap": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None, chain_bound_ms=chain_ms,
-                        longest_chain=chain)}
+
+    # cycles per Dijkstra step: the longest problem alone against a problem
+    # of the same size that the greedy start solves (every row's argmin its
+    # own column), each launch's device time with the card setting the pace
+    longest = int(steps.reshape(-1).argmax())
+    iters = int(steps.max())
+    one = cost.reshape(-1, N, N)[longest:longest + 1].cuda()
+    one_rv = rv.reshape(-1, N)[longest:longest + 1].cuda()
+    easy = (1.0 - torch.eye(N))[None].cuda()
+    easy_rv = torch.ones(1, N, dtype=torch.bool, device="cuda")
+    easy_steps = torch.zeros(1, dtype=torch.int64)
+    lap_solve_plain(easy.cpu(), easy_rv.cpu(), easy_steps)
+    if int(easy_steps) != 0:
+        raise RuntimeError("lap: the greedy start's problem needs Dijkstra iterations")
+    clock = sm_clock_hz()
+    t_long = cuda_ms(lambda: lap_solve(one, one_rv), queued=True)
+    t_easy = cuda_ms(lambda: lap_solve(easy, easy_rv), queued=True)
+    cycles_per_step = (t_long - t_easy) * 1e-3 * clock / iters
+    log(f"kernel lap one problem: the longest ({iters} Dijkstra iterations) {t_long:.4f} ms, "
+        f"one the greedy start solves {t_easy:.4f} ms (device time per launch, launches "
+        f"queued); SM clock {clock / 1e9:.3f} GHz (torch.cuda._sleep timed): "
+        f"{cycles_per_step:.0f} cycles per Dijkstra iteration")
+    report = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None, cycles_per_step=cycles_per_step,
+                  dijkstra_iterations=iters)
+    lat = lap_step_latencies()
+    # a step's chain: the chosen column's row (r4c, a shared load), that
+    # row's costs (a shared load), the update, the argmin; the parallel
+    # start's: a row's costs, its argmin, the claim (a shared atomic) and
+    # its read back
+    step = 2 * lat["shared_load"] + lat["update"] + lat["argmin"]
+    start = 3 * lat["shared_load"] + lat["argmin"]
+    chain_cycles = iters * step + start
+    chain_ms = 1e3 * chain_cycles / clock
+    log(f"kernel lap chain bound: {chain_ms:.4f} ms = {iters} Dijkstra iterations (counted in "
+        f"the longest problem; mean {steps.float().mean().item():.1f}) x {step:.1f} cycles "
+        f"(2 shared loads of {lat['shared_load']:.1f}, the update {lat['update']:.1f}, the "
+        f"argmin {lat['argmin']:.1f}: clock64 on this card, lap_step_latencies) + the "
+        f"parallel start {start:.1f} cycles, at the SM clock of {clock / 1e9:.3f} GHz "
+        f"(probe's own: {lat['clock_ghz']:.3f}); {Lr * B * Gq} warps over 132 SMs all run at "
+        f"once; the kernel takes {ms / chain_ms:.2f}x that, {cycles_per_step / step:.2f}x a "
+        f"step's links per Dijkstra iteration")
+    report.update(chain_bound_ms=chain_ms, step_cycles=step, step_latencies=lat)
+    return {"lap": report}
 
 
 def main_path_counts(per_run, n_runs, label):
@@ -848,9 +926,10 @@ def main_path_counts(per_run, n_runs, label):
 
 
 def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
-                     per_forward=None, check_plain=True):
-    """Tester.inference in bf16 at batch 16 with the launch counts read
-    around it; then the f32 forward at B=2, kernels against plain versions."""
+                     per_forward=None, check_plain=True, batch=16, size=(384, 1280)):
+    """Tester.inference in bf16 at `batch` with the launch counts read
+    around it; then the f32 forward at B=2 and the same `size`, kernels
+    against plain versions."""
     import logging
 
     from monodetr_torch.config import MONODETR_MODEL
@@ -858,12 +937,12 @@ def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
     from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
 
     cfg = dict(MONODETR_MODEL, **(overrides or {}))
-    batch = 16
     model = build_monodetr(cfg, seed=444).to("cuda", compute_dtype(cfg))
     logging.basicConfig(level=logging.WARNING)
     # threshold 0: random weights score every pick near the 0.01 class
     # prior, and the decode of all 50 picks per image is what is checked
-    tester = Tester({"threshold": 0.0, "topk": 50}, model, SyntheticLoader(n_batches, batch, 0),
+    tester = Tester({"threshold": 0.0, "topk": 50}, model,
+                    SyntheticLoader(n_batches, batch, 0, *size),
                     logging.getLogger("chip_smoke"), {"save_path": "outputs/"}, "chip_smoke")
     per_forward = per_forward or {"msda_enc_fused": 3, "msda_sep": 3, "attention_fwd": 1}
     reset_launches()
@@ -875,12 +954,12 @@ def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
           and np.isfinite(np.asarray(rows, np.float64)).all()
           and all(len(r) == 14 for r in rows))
     txts = len(os.listdir(tester.results_dir))
-    log(f"{label}: Tester.inference bf16 {n_batches} x {batch} images 384x1280: "
+    log(f"{label}: Tester.inference bf16 {n_batches} x {batch} images {size[0]}x{size[1]}: "
         f"{tester.ms_per_img:.2f} ms/img, launches {counts} (want {per_forward} per "
         f"forward), {len(rows)} KITTI rows in {txts} txts {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{label}: wrong decoded rows")
-    batch0, _ = next(iter(SyntheticLoader(1, batch, 0)))
+    batch0, _ = next(iter(SyntheticLoader(1, batch, 0, *size)))
     dets = tester.predict(batch0["images"], batch0["calibs"], batch0["img_sizes"])
     if dets.shape != (batch, 50, 37) or not np.isfinite(dets).all():
         raise RuntimeError(f"{label}: detections {dets.shape} not finite [B, 50, 37]")
@@ -894,7 +973,7 @@ def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
     # the layer norms and the inverse-sigmoid refinement may amplify.
     tol = 1e-3
     model = build_monodetr(cfg, seed=444).to("cuda", torch.float32)
-    b2, _ = next(iter(SyntheticLoader(1, 2, 1)))
+    b2, _ = next(iter(SyntheticLoader(1, 2, 1, *size)))
     inputs = [torch.from_numpy(b2[k]).cuda() for k in ("images", "calibs", "img_sizes")]
     with torch.no_grad():
         got = model(*inputs)
@@ -904,7 +983,7 @@ def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
             for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth")}
     ok = all(e <= tol for e in errs.values()) and all(
         torch.isfinite(got[k]).all().item() for k in errs)
-    log(f"{label}: f32 forward B=2, kernels vs plain versions: "
+    log(f"{label}: f32 forward B=2 {size[0]}x{size[1]}, kernels vs plain versions: "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
         + f" (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -917,9 +996,11 @@ DEFAULT_PER_STEP = {"msda_enc_fused": 3, "msda_enc_fused_bwd": 3, "msda_sep": 3,
 
 
 def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_STEP,
-                      n_steps=6, batch=16):
-    """bf16 train steps at batch 16 with dropout 0.1 through the kernels;
-    launch counts, finite and moving losses, bf16 kernel inputs, step time."""
+                      n_steps=6, batch=16, size=(384, 1280)):
+    """bf16 train steps at `batch` with dropout 0.1 through the kernels;
+    launch counts, finite and moving losses, bf16 kernel inputs, step time
+    and the peak memory of the steps (model, AdamW state and batches
+    included).  Returns (counts, ms/step from the third step on, peak GiB)."""
     from monodetr_torch.config import MONODETR_MODEL
     from monodetr_torch.models.criterion import SetCriterion
     from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
@@ -932,7 +1013,7 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
     dtype = compute_dtype(cfg)
     step = make_train_step(model, SetCriterion(cfg), opt, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batches = [batch_to_device(b, "cuda") for b, _ in SyntheticLoader(n_steps, batch, 2)]
+    batches = [batch_to_device(b, "cuda") for b, _ in SyntheticLoader(n_steps, batch, 2, *size)]
     seen = set()
     dtype_code = _build.dtype_code
 
@@ -943,6 +1024,7 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
     _build.dtype_code = recording
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
         events[0].record()
@@ -957,29 +1039,30 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
     values = np.stack([lv.values.cpu().numpy() for lv in losses])
     totals = values[:, losses[0].keys_.index("loss_detr")]
     ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_steps)]
-    steady = float(np.mean(ms[2:]))
+    steady = float(np.mean(ms[2:] if n_steps > 2 else ms[-1:]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ok = (np.isfinite(values).all() and len(set(totals.tolist())) == n_steps
           and seen == {torch.bfloat16} and len(losses[0].keys_) == 2 + 7 * 3 + 1)
-    log(f"{label}: {n_steps} train steps, batch {batch}, 384x1280, bf16 compute, f32 "
+    log(f"{label}: {n_steps} train steps, batch {batch}, {size[0]}x{size[1]}, bf16 compute, f32 "
         f"parameters and AdamW state, dropout 0.1: loss_detr "
         + " ".join(f"{t:.3f}" for t in totals)
         + f"; launches {counts} (want {per_step} per step); kernel dtypes "
         f"{sorted(str(d) for d in seen)} {'ok' if ok else 'FAIL'}")
     log(f"{label}: ms/step by CUDA events " + " ".join(f"{m:.1f}" for m in ms)
-        + f"; steps 3-{n_steps}: {steady:.1f} ms/step, {1000 * batch / steady:.1f} img/s; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        + f"; steps {min(3, n_steps)}-{n_steps}: {steady:.1f} ms/step, "
+        f"{1000 * batch / steady:.1f} img/s; peak memory {peak:.2f} GiB")
     if not ok:
         raise RuntimeError(f"{label}: wrong losses or kernel dtypes")
     del model, opt, step, batches
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    return counts, steady
+    return counts, steady, peak
 
 
-def phase_train_vs_plain(label="train vs plain", overrides=None):
-    """One f32 train step at B=2 without dropout through the kernels and
-    through the plain versions (LAP included): identical matches, losses
-    to 1e-4 relative, every gradient to 1e-3 * max|g_plain| + 1e-6."""
+def phase_train_vs_plain(label="train vs plain", overrides=None, batch=2, size=(384, 1280)):
+    """One f32 train step at `batch` and `size` without dropout through the
+    kernels and through the plain versions (LAP included): identical
+    matches, losses to 1e-4 relative, every gradient to 1e-3 * max|g_plain|
+    + 1e-6."""
     import monodetr_torch.models.matcher as matcher
     from monodetr_torch.config import MONODETR_MODEL
     from monodetr_torch.models.criterion import SetCriterion
@@ -994,7 +1077,7 @@ def phase_train_vs_plain(label="train vs plain", overrides=None):
             bias.copy_(torch.floor(bias * 16) / 16 + 1 / 32)
     plain = copy.deepcopy(model).use_plain_ops(True)
     crit = SetCriterion(cfg)
-    b, _ = next(iter(SyntheticLoader(1, 2, 3)))
+    b, _ = next(iter(SyntheticLoader(1, batch, 3, *size)))
     b = batch_to_device(b, "cuda")
     targets = {k: b[k] for k in TARGET_KEYS}
     results = []
@@ -1019,20 +1102,79 @@ def phase_train_vs_plain(label="train vs plain", overrides=None):
         if e > worst:
             worst, worst_name = e, n
     ok = same and loss_err <= 1e-4 and worst <= 1.0 and g_k.keys() == g_p.keys()
-    log(f"{label}: f32 step B=2, dropout 0: matches identical {same}, losses max rel "
+    log(f"{label}: f32 step B={batch} {size[0]}x{size[1]}, dropout 0: matches identical {same}, "
+        f"losses max rel "
         f"{loss_err:.2e} (tol 1e-4), {len(g_p)} gradients: worst |a-b| / (1e-3 max|b| + 1e-6) "
         f"{worst:.3f} at {worst_name} (<= 1) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{label}: the f32 step through the kernels disagrees")
+    del model, plain, results
+    torch.cuda.empty_cache()
+
+
+def phase_stress_remat():
+    """One f32 step of the stress model (ResNet-101) at 768x2560, B=1,
+    dropout 0.1 from one generator seed, without remat, with remat True and
+    without again (two models built from one seed, remat off and on): the
+    losses and the generator's final state bit-equal,
+    and every gradient within REMAT_GRAD_TOL of its largest entry, beside
+    the same measure between the two runs without remat (kernels 1 and 2
+    sum the value gradient by atomics, in another order from run to run)."""
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr
+    from monodetr_torch.train.train_step import TARGET_KEYS, batch_to_device
+
+    cfg = dict(MONODETR_MODEL, **STRESS, dtype="float32")
+    models = {remat: build_monodetr(dict(cfg, remat=remat), seed=444).cuda()
+              for remat in (False, True)}
+    crit = SetCriterion(cfg)
+    b = batch_to_device(next(iter(SyntheticLoader(1, 1, 6, *STRESS_SIZE)))[0], "cuda")
+    targets = {k: b[k] for k in TARGET_KEYS}
+    runs = []
+    for remat in (False, True, False):
+        model = models[remat]
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        out = model(b["images"], b["calibs"], b["img_sizes"], train=True, gen=gen)
+        losses = crit(out, targets)
+        crit.total(losses).backward()
+        runs.append((torch.stack([losses[k].detach() for k in sorted(losses)]),
+                     {n: p.grad for n, p in model.named_parameters() if p.grad is not None},
+                     gen.get_state()))
+        del out, losses
+    torch.cuda.synchronize()
+
+    def worst(a, b):
+        return max(((a[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                   for n, g in b.items())
+
+    (l0, g0, s0), (l1, g1, s1), (l2, g2, s2) = runs
+    remat_err, noise = worst(g1, g0), worst(g2, g0)
+    ok = (torch.equal(l1, l0) and torch.equal(s1, s0) and torch.equal(s2, s0)
+          and g1.keys() == g0.keys() and torch.isfinite(l0).all().item()
+          and remat_err <= REMAT_GRAD_TOL)
+    log(f"stress remat: f32 step, resnet101 768x2560 B=1, dropout 0.1, one seed: "
+        f"losses bit-equal {torch.equal(l1, l0)}, generator state equal {torch.equal(s1, s0)}, "
+        f"{len(g0)} gradients: worst max|remat - no remat| / max|no remat| {remat_err:.2e} (tol "
+        f"{REMAT_GRAD_TOL:.0e}); two runs without remat: {noise:.2e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("stress: the step with remat differs from the step without")
+    del models, model, runs
+    torch.cuda.empty_cache()
 
 
 def main(argv):
-    if argv not in ([], ["--decoder-msda-only"]):
-        sys.exit(f"usage: python3 chip_smoke.py [--decoder-msda-only], not {argv}")
+    if argv not in ([], ["--decoder-msda-only"], ["--lap-only"]):
+        sys.exit(f"usage: python3 chip_smoke.py [--decoder-msda-only | --lap-only], not {argv}")
     phase_environment()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv == ["--lap-only"]:
+        phase_lap()
+        return
     if argv:
         phase_forward_kernels([n for n in FORWARD_KERNELS if n in LOC_KERNELS])
         phase_backward_kernels([n for n in BACKWARD_KERNELS if n in LOC_KERNELS])
@@ -1052,22 +1194,34 @@ def main(argv):
 
     add(phase_eval_slice())
     phase_train_vs_plain()
-    counts, default_ms = phase_train_slice()
+    counts, default_ms, _ = phase_train_slice()
     add(counts)
     a_step = {"msda_pallas": 3, "msda_pallas_bwd": 3, "msda_dense_fused": 3,
               "msda_dense_fused_bwd": 3, "attention_fwd": 4, "attention_bwd": 4, "lap": 1}
     b_step = {"msda_sepwin": 3, "msda_sepwin_bwd": 3, "msda_sep": 3, "msda_sep_bwd": 3,
               "attention_fwd": 4, "attention_bwd": 4, "lap": 1}
-    counts, a_ms = phase_train_slice("config A train", CONFIG_A, a_step, n_steps=4)
+    counts, a_ms, _ = phase_train_slice("config A train", CONFIG_A, a_step, n_steps=4)
     add(counts)
     add(phase_eval_slice("config A eval", CONFIG_A, 1, {"msda_pallas": 3, "msda_dense_fused": 3,
                                                         "attention_fwd": 1}, check_plain=False))
     phase_train_vs_plain("config A train vs plain", CONFIG_A)
-    counts, b_ms = phase_train_slice("config B train", CONFIG_B, b_step, n_steps=4)
+    counts, b_ms, _ = phase_train_slice("config B train", CONFIG_B, b_step, n_steps=4)
     add(counts)
     phase_train_vs_plain("config B train vs plain", CONFIG_B)
     log(f"train ms/step, bf16 batch 16, steps 3 on: default (fused + sep) {default_ms:.1f}, "
         f"A (pallas + dense_fused) {a_ms:.1f}, B (sepwin + sep) {b_ms:.1f}")
+    counts, stress_ms, stress_peak = phase_train_slice(
+        "stress train", STRESS, DEFAULT_PER_STEP, n_steps=3, batch=STRESS_BATCH, size=STRESS_SIZE)
+    add(counts)
+    _, flat_ms, flat_peak = phase_train_slice(
+        "stress train, remat off", dict(STRESS, remat=False), DEFAULT_PER_STEP, n_steps=2,
+        batch=STRESS_BATCH, size=STRESS_SIZE)
+    log(f"stress: resnet101 768x2560 batch 2 bf16, peak memory remat True {stress_peak:.2f} GiB, "
+        f"remat off {flat_peak:.2f} GiB; ms/step (smoke readings) {stress_ms:.1f} and "
+        f"{flat_ms:.1f}")
+    add(phase_eval_slice("stress eval", STRESS, 1, batch=STRESS_BATCH, size=STRESS_SIZE))
+    phase_train_vs_plain("stress train vs plain", STRESS, batch=1, size=STRESS_SIZE)
+    phase_stress_remat()
     idle = [k for k, v in totals.items() if v == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")

@@ -49,6 +49,7 @@ SIGNATURES = {
     "mdt_attention_bwd": (_P,) * 10 + (_I,) * 5 + (_F, _P, _U, _P),
     "mdt_attention_keep_mask": (_P, _I, _I, _I, _P, _U, _P),
     "mdt_lap": (_P, _P, _P, _I, _I, _P),
+    "mdt_lap_probe": (_P, _I, _P),
 }
 
 

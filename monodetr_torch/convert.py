@@ -10,7 +10,12 @@ tensors under the reference `state_dict` names that monodetr_torch uses.
   - the JAX FrozenBN holds the folded (scale, bias); the four reference
     buffers become weight = scale, bias = bias, running_mean = 0 and
     running_var = 1 - eps, which define the same affine;
-  - MultiheadAttention in_proj_kernel [C, 3C] -> in_proj_weight [3C, C].
+  - MultiheadAttention in_proj_kernel [C, 3C] -> in_proj_weight [3C, C];
+  - the learned position tables (position_embedding/row_embed, col_embed,
+    [50, F]) -> backbone.1.row_embed.weight, backbone.1.col_embed.weight,
+    the reference's Joiner names (tools/convert_checkpoint.py has no
+    mapping for them).
+The backbone's blocks are counted per stage (ResNet-50 or ResNet-101).
 Every leaf of the tree must be consumed: an unknown leaf raises.
 """
 
@@ -18,6 +23,9 @@ import numpy as np
 import torch
 
 from .models.backbone import BN_EPS
+
+# the learned position embedding's tables, as the reference names them
+LEARNED_POSITION = ("backbone.1.row_embed.weight", "backbone.1.col_embed.weight")
 
 
 class _Tree:
@@ -119,6 +127,9 @@ def params_from_jax(flax_params) -> dict:
                 conv(f"{tp}.downsample.0", jp + "/downsample_conv", bias=False)
                 frozen_bn(f"{tp}.downsample.1", jp + "/downsample_bn")
 
+    if t.has("position_embedding"):
+        for key, name in zip(LEARNED_POSITION, ("row_embed", "col_embed")):
+            sd[key] = t.get("position_embedding/" + name)
     for i in range(4):
         conv_gn(f"input_proj.{i}.0", f"input_proj.{i}.1", f"input_proj_{i}")
 

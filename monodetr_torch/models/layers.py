@@ -4,11 +4,14 @@ the post-norm FFN, and dropout.
 
 Dropout is flax's nn.Dropout: x / (1 - p) where kept, P(keep) = 1 - p.
 Every random draw comes from an explicit torch.Generator passed down the
-forward (`gen`); with gen None (evaluation) dropout is the identity."""
+forward (`gen`); with gen None (evaluation) dropout is the identity.
+`checkpoint_with_gen` rematerialises a region that draws from such a
+generator."""
 
 from torch import nn
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_plain, fused_attention
 
@@ -25,6 +28,32 @@ def dropout(x, p, gen):
         return x
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def checkpoint_with_gen(fn, *args, gen=None):
+    """fn(*args, gen) under torch.utils.checkpoint (non-reentrant): its
+    activations are recomputed in the backward.  checkpoint's own
+    preserve_rng_state saves the default generators only, so the region's
+    draws from `gen` are kept here: the recompute starts from the state the
+    forward started from, and so draws the same dropout masks, and then
+    puts `gen` back where the backward found it.  A step with the region
+    rematerialised thus leaves `gen` where the step without leaves it."""
+    if gen is None:
+        return checkpoint(fn, *args, None, use_reentrant=False, preserve_rng_state=False)
+    start = []
+
+    def run(*a):
+        if not start:  # the forward
+            start.append(gen.get_state())
+            return fn(*a, gen)
+        after = gen.get_state()  # the recompute, in the backward
+        gen.set_state(start[0])
+        try:
+            return fn(*a, gen)
+        finally:
+            gen.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class MLP(nn.Module):

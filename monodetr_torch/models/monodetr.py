@@ -1,7 +1,9 @@
 """MonoDETR: backbone -> input projections -> depth predictor ->
 depth-aware transformer -> per-layer heads with three-way depth fusion
 (monodetr_tpu/models/monodetr.py, reference monodetr.py:150-283), the eval
-and training forward of the shipped configuration.
+and training forward of the standard query configuration, with ResNet-50 or
+ResNet-101 (`backbone`), with or without `dilation`, sine or learned
+position embeddings, and the JAX model's `remat` scopes (check_remat).
 
 Parameter names are the reference checkpoint's `state_dict` keys, so
 convert.py and tools/convert_checkpoint.py map them to and from the JAX
@@ -22,7 +24,7 @@ from .backbone import BACKBONE_NUM_CHANNELS, FrozenBatchNorm2d, ResNetBackbone
 from .depth_predictor import DepthPredictor
 from .layers import MLP, MultiheadAttention, conv_gn
 from .msda_module import MSDeformAttn
-from .position_encoding import sine_pos_table
+from .position_encoding import LearnedPositionEmbedding, sine_pos_table
 from .transformer import DepthAwareTransformer
 
 
@@ -33,20 +35,24 @@ class MonoDETR(nn.Module):
                  num_depth_bins=80, depth_min=1e-3, depth_max=60.0, with_box_refine=True,
                  init_box=False, two_stage=False, use_dab=False, two_stage_dino=False,
                  position_embedding="sine", msda_impl="gather", msda_window=8,
-                 dec_msda_impl="sep", dropout=0.1):
+                 dec_msda_impl="sep", dropout=0.1, remat=False):
         super().__init__()
-        if position_embedding != "sine" or backbone_name != "resnet50" or dilation:
-            raise NotImplementedError(
-                f"only the resnet50 backbone without dilation and sine position "
-                f"embeddings are ported, not {backbone_name!r} (dilation={dilation}) "
-                f"with {position_embedding!r} (ROADMAP.md section A, variants)")
+        if position_embedding not in ("sine", "learned", "v3"):
+            raise ValueError(f"position_embedding {position_embedding!r} is not one of "
+                             "'sine', 'learned', 'v3'")
         if num_feature_levels != 4:
             raise ValueError("MonoDETR uses the 3 backbone levels and one extra level")
         self.num_queries = num_queries
         self.hidden_dim = hidden_dim
         self.dec_layers = dec_layers
         self.with_box_refine, self.init_box = with_box_refine, init_box
-        self.backbone = nn.ModuleList([ResNetBackbone()])
+        scopes = check_remat(remat)
+        # backbone.0 the ResNet, backbone.1 the learned position embedding
+        # (the reference's Joiner; the sine table has no parameters)
+        self.backbone = nn.ModuleList(
+            [ResNetBackbone(backbone_name, dilation, "backbone" in scopes)]
+            + ([LearnedPositionEmbedding(hidden_dim // 2)]
+               if position_embedding in ("learned", "v3") else []))
         self.input_proj = nn.ModuleList(
             [conv_gn(c, hidden_dim, 1) for c in BACKBONE_NUM_CHANNELS]
             + [conv_gn(BACKBONE_NUM_CHANNELS[-1], hidden_dim, 3, stride=2)])
@@ -54,7 +60,8 @@ class MonoDETR(nn.Module):
         self.depthaware_transformer = DepthAwareTransformer(
             hidden_dim, nheads, enc_layers, dec_layers, dim_feedforward, num_feature_levels,
             enc_n_points, dec_n_points, two_stage, use_dab, two_stage_dino,
-            msda_impl, msda_window, dec_msda_impl, dropout, group_num, num_queries)
+            msda_impl, msda_window, dec_msda_impl, dropout, group_num, num_queries,
+            remat="encoder" in scopes)
         self.query_embed = nn.Embedding(num_queries * group_num, 2 * hidden_dim)
         self.class_embed = nn.ModuleList(
             nn.Linear(hidden_dim, num_classes) for _ in range(dec_layers))
@@ -90,8 +97,12 @@ class MonoDETR(nn.Module):
         srcs = [self.input_proj[i](feats[i]) for i in range(3)]
         srcs.append(self.input_proj[3](feats[2]))
         B = images.shape[0]
-        pos = [sine_pos_table(s.shape[2], s.shape[3], self.hidden_dim, images.device)[None]
-               .expand(B, -1, -1, -1) for s in srcs]
+        if len(self.backbone) > 1:  # learned
+            pos = [self.backbone[1](s.shape[2], s.shape[3])[None].expand(B, -1, -1, -1)
+                   for s in srcs]
+        else:
+            pos = [sine_pos_table(s.shape[2], s.shape[3], self.hidden_dim, images.device)[None]
+                   .expand(B, -1, -1, -1) for s in srcs]
 
         depth_logits, depth_tokens, weighted_depth, _ = self.depth_predictor(
             srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype), gen)
@@ -183,6 +194,10 @@ def init_params(model: MonoDETR, gen: torch.Generator):
             m.init_offset_bias()
             m.attention_weights.weight.zero_()
             m.attention_weights.bias.zero_()
+    for m in model.modules():
+        if isinstance(m, LearnedPositionEmbedding):  # flax uniform(1.0)
+            m.row_embed.weight.uniform_(0.0, 1.0, generator=gen)
+            m.col_embed.weight.uniform_(0.0, 1.0, generator=gen)
     for seq in model.input_proj:
         _xavier_uniform_(seq[0].weight, gen)
     tr = model.depthaware_transformer
@@ -205,15 +220,12 @@ REMAT_SCOPES = {False: (), "none": (), "backbone": ("backbone",), "encoder": ("e
 
 
 def check_remat(remat):
-    """The config's `remat` (monodetr_tpu/models/monodetr.py:64-72): only
-    the values that save every activation build; the rematerialisation
-    scopes are not ported, and anything else is no scope at all."""
+    """The scopes that the config's `remat` rematerialises
+    (monodetr_tpu/models/monodetr.py:64-72): "backbone" checkpoints every
+    trained Bottleneck, "encoder" every VisualEncoderLayer but for its
+    sampled output; anything else raises the JAX model's ValueError."""
     if remat in REMAT_SCOPES:
-        if not REMAT_SCOPES[remat]:
-            return
-        raise NotImplementedError(
-            f"remat={remat!r}: rematerialisation is not ported, only remat False or "
-            f"'none' (ROADMAP.md section A4)")
+        return REMAT_SCOPES[remat]
     raise ValueError(
         f"remat={remat!r}; expected one of "
         "False/'none', 'backbone', 'encoder', True/'all'")
@@ -222,7 +234,6 @@ def check_remat(remat):
 def build_monodetr(cfg, seed=None) -> MonoDETR:
     """Model from the `model:` section of the config, on the CPU in f32;
     with `seed`, every parameter is initialised from torch.Generator(seed)."""
-    check_remat(cfg.get("remat", False))
     model = MonoDETR(
         num_classes=cfg.get("num_classes", 3),
         num_queries=cfg.get("num_queries", 50),
@@ -250,6 +261,7 @@ def build_monodetr(cfg, seed=None) -> MonoDETR:
         msda_window=cfg.get("msda_window", 8),
         dec_msda_impl=cfg.get("dec_msda_impl", "sep"),
         dropout=cfg.get("dropout", 0.1),
+        remat=cfg.get("remat", False),
     )
     if seed is not None:
         init_params(model, torch.Generator().manual_seed(seed))

@@ -97,6 +97,14 @@ class MSDeformAttn(nn.Module):
         """query [B, Q, C]; reference_points [B, Q, L, 2] (normalised
         centres) or [B, Q, L, 6] (cxcylrtb boxes); value_tokens [B, S, C];
         spatial_shapes ((h, w), ...).  Returns [B, Q, C]."""
+        op, args = self.sampling(query, reference_points, value_tokens, spatial_shapes)
+        return self.output_proj(op(*args).to(query.dtype))
+
+    def sampling(self, query, reference_points, value_tokens, spatial_shapes):
+        """(op, args): the impl's sampling op and its inputs, made from the
+        projections; op(*args) is the sampled output [B, Q, H * D] that
+        output_proj reads (the JAX module's "msda_sampled", which its
+        encoder rematerialisation keeps)."""
         B, Q, C = query.shape
         S = value_tokens.shape[1]
         H, L, P = self.n_heads, self.n_levels, self.n_points
@@ -113,8 +121,7 @@ class MSDeformAttn(nn.Module):
             off = nn.functional.linear(query, w, b)
             logits = self.attention_weights(query)
             op = ms_deform_attn_enc_fused_plain if self.plain_ops else ms_deform_attn_enc_fused
-            out = op(value, shapes, off, logits, self.window)
-            return self.output_proj(out.to(query.dtype))
+            return op, (value, shapes, off, logits, self.window)
 
         if self.impl == "gather":  # exact-parity path: f32 projections
             offsets = nn.functional.linear(query.float(), self.sampling_offsets.weight.float(),
@@ -139,8 +146,7 @@ class MSDeformAttn(nn.Module):
             fy = torch.clamp(cy + offsets[..., 128:], cy - lim, cy + lim)
             op = (ms_deform_attn_pallas_packed_plain if self.plain_ops
                   else ms_deform_attn_pallas_packed)
-            out = op(value, shapes, fx, fy, to_lanes(attn), self.window)
-            return self.output_proj(out.to(query.dtype))
+            return op, (value, shapes, fx, fy, to_lanes(attn), self.window)
 
         offsets = offsets.view(B, Q, H, L, P, 2)
         ref = reference_points.float()
@@ -158,10 +164,9 @@ class MSDeformAttn(nn.Module):
         if self.impl in ("sepwin", "windowed"):
             op = (ms_deform_attn_windowed if self.plain_ops or self.impl == "windowed"
                   else ms_deform_attn_sepwin)
-            out = op(value, shapes, loc, attn, self.window)
-        elif self.impl in ("sep", "dense_fused") and not self.plain_ops:
+            return op, (value, shapes, loc, attn, self.window)
+        if self.impl in ("sep", "dense_fused") and not self.plain_ops:
             op = ms_deform_attn_sep if self.impl == "sep" else ms_deform_attn_dense_fused
-            out = op(value, shapes, loc, attn)
-        else:  # "gather", "dense" (ms_deform_attn_dense), or a kernel impl's plain version
-            out = ms_deform_attn(value, shapes, loc, attn)
-        return self.output_proj(out.to(query.dtype))
+            return op, (value, shapes, loc, attn)
+        # "gather", "dense" (ms_deform_attn_dense), or a kernel impl's plain version
+        return ms_deform_attn, (value, shapes, loc, attn)

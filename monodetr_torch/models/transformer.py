@@ -15,9 +15,10 @@ Masks are all-valid at fixed input shapes, so valid ratios are 1.
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.utils import device_constant, inverse_sigmoid
-from .layers import MultiheadAttention, dropout, ffn
+from .layers import MultiheadAttention, checkpoint_with_gen, dropout, ffn
 from .msda_module import MSDeformAttn
 
 
@@ -34,10 +35,22 @@ def encoder_reference_points(spatial_shapes):
 
 
 class VisualEncoderLayer(nn.Module):
+    """With `remat` (the config's `remat: encoder`, `True` or `all`), a
+    training forward keeps the sampled output of its deformable attention
+    and recomputes the rest in the backward, as the JAX layer's
+    save_only_these_names("msda_sampled") policy does (transformer.py:
+    263-271): two checkpointed regions, the projections before the sampling
+    and the output projection, norms and FFN after it; the sampling op runs
+    between them once, and its output is the second region's saved input.
+    The op's autograd node keeps its inputs (value, offsets, weights).  The
+    second region's dropout masks are drawn again in the recompute from the
+    generator state its forward started from (checkpoint_with_gen)."""
+
     def __init__(self, d_model=256, d_ffn=256, n_levels=4, n_heads=8, n_points=4,
-                 msda_impl="gather", msda_window=8, dropout=0.1):
+                 msda_impl="gather", msda_window=8, dropout=0.1, remat=False):
         super().__init__()
         self.dropout = dropout
+        self.remat = remat
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       impl=msda_impl, window=msda_window)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -46,8 +59,18 @@ class VisualEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes, gen=None):
+        attn = self.self_attn
+        if not (self.remat and torch.is_grad_enabled()):
+            op, args = attn.sampling(src + pos, reference_points, src, spatial_shapes)
+            return self._after_sampling(src, op(*args), gen)
+        op, args = checkpoint(
+            lambda s, q: attn.sampling(s + q, reference_points, s, spatial_shapes), src, pos,
+            use_reentrant=False, preserve_rng_state=False)
+        return checkpoint_with_gen(self._after_sampling, src, op(*args), gen=gen)
+
+    def _after_sampling(self, src, sampled, gen):
         p = self.dropout
-        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes)
+        src2 = self.self_attn.output_proj(sampled.to(src.dtype))
         src = self.norm1(src + dropout(src2, p, gen))
         return ffn(src, self.linear1, self.linear2, self.norm2, p, gen)
 
@@ -119,20 +142,20 @@ class DepthAwareTransformer(nn.Module):
                  dim_feedforward=256, num_feature_levels=4, enc_n_points=4, dec_n_points=4,
                  two_stage=False, use_dab=False, two_stage_dino=False,
                  msda_impl="gather", msda_window=8, dec_msda_impl="sep", dropout=0.1,
-                 group_num=11, num_queries=50):
+                 group_num=11, num_queries=50, remat=False):
         super().__init__()
         for flag, on in (("two_stage", two_stage), ("use_dab", use_dab),
                          ("two_stage_dino", two_stage_dino)):
             if on:
                 raise NotImplementedError(
                     f"{flag} is not ported; the standard query path is "
-                    "(ROADMAP.md section A, variants)")
+                    "(ROADMAP.md section A2, the query variants)")
         self.d_model = d_model
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         self.reference_points = nn.Linear(d_model, 2)
         self.encoder = _Layers(
             VisualEncoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
-                               enc_n_points, msda_impl, msda_window, dropout)
+                               enc_n_points, msda_impl, msda_window, dropout, remat)
             for _ in range(num_encoder_layers))
         self.decoder = _Layers(
             DepthAwareDecoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,

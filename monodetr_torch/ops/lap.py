@@ -3,7 +3,8 @@
 Counterpart of monodetr_tpu/models/matcher.py:lap_solve and
 monodetr_tpu/ops/lap_pallas.py:lap_solve_pallas.  `lap_solve` runs the CUDA
 kernel csrc/lap.cu:lap_kernel for a CUDA tensor (all problems in one
-launch) and `lap_solve_plain` for a CPU tensor.  `lap_solve_plain` is the
+launch; each warp solves one problem from its cost matrix in shared
+memory) and `lap_solve_plain` for a CPU tensor.  `lap_solve_plain` is the
 plain PyTorch version: lap_solve transcribed op for op, batched over the
 problems as jax.vmap batches it (a problem whose loop has ended keeps its
 state while the others run on).  Both are bit-identical to lap_solve and
@@ -11,6 +12,7 @@ to scipy.optimize.linear_sum_assignment on the same f32 costs: every sum
 is taken in lap_solve's order and there are no products.
 """
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -121,3 +123,47 @@ def lap_solve(cost, row_valid):
 
 
 lap_solve.launches = 0
+
+
+def lap_step_latencies(iters=1024):
+    """The latencies on the card of the links of one Dijkstra step of the
+    kernel, from csrc/lap.cu:lap_probe_kernel (clock64 around dependent
+    chains of `iters` repetitions on one warp): {"shared_load", "update",
+    "argmin": SM cycles each, "clock_ghz": the SM clock during the probe}.
+    A measurement, not a launch of the solver."""
+    out = torch.zeros(6, dtype=torch.int64, device="cuda")
+    _build.require_cuda("lap_step_latencies", out)
+    _build.launch("mdt_lap_probe", out.data_ptr(), iters, _build.stream_of(out))
+    c = out.tolist()
+    return {"shared_load": c[0] / iters, "update": c[1] / iters, "argmin": c[2] / iters,
+            "clock_ghz": c[3] / c[4]}
+
+
+def lap_edge_cases(seed=11):
+    """[(name, cost [P, N, N] f32, row_valid [P, N] bool)] as numpy: the
+    solver's edge cases.  Row minima that are zeros of both signs (-0.0 and
+    +0.0 tie under <, and the lowest column wins), exact ties (integer
+    costs), validity scattered through the rows, no valid row, and N of 1,
+    31, 32, 33 and 64 (a lane's second column, and problems whose costs
+    start off 16-byte alignment)."""
+    rng = np.random.RandomState(seed)
+
+    def quantised(P, N, levels):
+        return (rng.randint(0, levels, (P, N, N)) / 4.0).astype(np.float32)
+
+    def scattered(P, N):
+        return rng.rand(P, N) < rng.uniform(0.2, 0.9, (P, 1))
+
+    cases = []
+    zeros = rng.choice(np.array([-1.0, -0.0, 0.0, 0.5, 1.0], np.float32), (16, 8, 8),
+                       p=[0.1, 0.3, 0.3, 0.15, 0.15])
+    cases.append(("signed zeros", zeros.astype(np.float32), scattered(16, 8) | (np.arange(8) < 4)))
+    cases.append(("exact ties", quantised(16, 50, 8), np.ones((16, 50), bool)))
+    cases.append(("scattered validity", quantised(16, 50, 40), scattered(16, 50)))
+    cases.append(("no valid row", quantised(4, 50, 40), np.zeros((4, 50), bool)))
+    for N in (1, 31, 32, 33, 64):
+        P = 15  # odd: with N * N odd, every other problem starts off 16-byte alignment
+        cost = np.where(rng.rand(P, 1, 1) < 0.5, quantised(P, N, 12),
+                        rng.rand(P, N, N).astype(np.float32) * 10)
+        cases.append((f"N={N}", cost.astype(np.float32), scattered(P, N)))
+    return cases

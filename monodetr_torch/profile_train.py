@@ -2,11 +2,16 @@
 
     python -m monodetr_torch.profile_train [--batch 16] [--steps 3] [--out outputs/profile]
         [--msda-impl fused] [--dec-msda-impl sep]
+        [--backbone resnet50] [--height 384] [--width 1280] [--remat 0]
 
 The shipped model (configs/monodetr.yaml, full width and depth, seeded
 random weights; the two impl options switch its deformable attention to
-an opt-in path, e.g. pallas + dense_fused) trains on synthetic 384x1280 images and targets in bf16
-compute with f32 parameters and dropout 0.1 (train/synthetic.py).  After 3
+an opt-in path, e.g. pallas + dense_fused) trains on synthetic images and
+targets in bf16 compute with f32 parameters and dropout 0.1
+(train/synthetic.py).  --backbone, --height, --width and --remat (0, 1,
+backbone, encoder or all) are bench.py's BENCH_BACKBONE, BENCH_H, BENCH_W
+and BENCH_REMAT: the stress configuration is `--backbone resnet101
+--height 768 --width 2560 --batch 2 --remat 1`.  After 3
 warm-up steps, 30 steps are timed one by one by CUDA events without the
 profiler (steps spread by tens of ms, so one reads their median), then
 `--steps` steps run under torch.profiler.
@@ -89,20 +94,27 @@ def main(argv=None):
     parser.add_argument("--out", default="outputs/profile")
     parser.add_argument("--msda-impl", default=MONODETR_MODEL["msda_impl"])
     parser.add_argument("--dec-msda-impl", default=MONODETR_MODEL["dec_msda_impl"])
+    parser.add_argument("--backbone", default=MONODETR_MODEL["backbone"])
+    parser.add_argument("--height", type=int, default=384)
+    parser.add_argument("--width", type=int, default=1280)
+    parser.add_argument("--remat", default="0", help="0, 1, backbone, encoder or all")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train: needs a CUDA card")
 
-    cfg = dict(MONODETR_MODEL, msda_impl=args.msda_impl, dec_msda_impl=args.dec_msda_impl)
+    remat = {"0": False, "1": True}.get(args.remat, args.remat)
+    cfg = dict(MONODETR_MODEL, msda_impl=args.msda_impl, dec_msda_impl=args.dec_msda_impl,
+               backbone=args.backbone, remat=remat)
     model = build_monodetr(cfg, seed=444).cuda()
     opt = build_optimizer({"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4}, model)
     step = make_train_step(model, SetCriterion(cfg), opt, compute_dtype(cfg))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batches = [batch_to_device(b, "cuda")
-               for b, _ in SyntheticLoader(3 + args.steps, args.batch, 4)]
+    batches = [batch_to_device(b, "cuda") for b, _ in SyntheticLoader(
+        3 + args.steps, args.batch, 4, args.height, args.width)]
     for b in batches[:3]:
         step(b, 2e-4, gen)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
     events[0].record()
@@ -111,6 +123,7 @@ def main(argv=None):
         events[i + 1].record()
     torch.cuda.synchronize()
     step_ms = np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -131,8 +144,10 @@ def main(argv=None):
         counts[group_of(e.name)] += 1
     busy = sum(by_group.values())
     n = args.steps
-    print(f"card: {torch.cuda.get_device_name(0)}; batch {args.batch}, 384x1280, bf16 compute, "
-          f"msda_impl {args.msda_impl}, dec_msda_impl {args.dec_msda_impl}")
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.backbone}, batch {args.batch}, "
+          f"{args.height}x{args.width}, bf16 compute, remat {remat!r}, msda_impl "
+          f"{args.msda_impl}, dec_msda_impl {args.dec_msda_impl}; peak memory of the "
+          f"unprofiled steps {peak_gib:.2f} GiB")
     med = float(np.median(step_ms))
     print(f"unprofiled: {len(step_ms)} steps by CUDA events, ms/step mean "
           f"{step_ms.mean():.1f} median {med:.1f} min {step_ms.min():.1f} max "

@@ -18,7 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..convert import params_from_jax
+from ..convert import LEARNED_POSITION, params_from_jax
 from ..models.backbone import BN_EPS, FrozenBatchNorm2d
 
 _CONVERTER = Path(__file__).resolve().parents[2] / "tools" / "convert_checkpoint.py"
@@ -39,7 +39,8 @@ def _convert_state_dict():
 
 def _depths(model):
     tr = model.depthaware_transformer
-    return dict(enc_layers=len(tr.encoder.layers), dec_layers=len(tr.decoder.layers))
+    return dict(backbone=model.backbone[0].body.name, enc_layers=len(tr.encoder.layers),
+                dec_layers=len(tr.decoder.layers))
 
 
 def _frozen_bn_names(model):
@@ -60,7 +61,11 @@ def to_jax_tree(model, values=None):
                 sd[k] = np.full_like(v, 1.0 - BN_EPS)  # scale = 0 / sqrt(1)
             else:
                 sd[k] = np.zeros_like(v)
-    return _convert_state_dict()(sd, **_depths(model))
+    tree = _convert_state_dict()(sd, **_depths(model))
+    if LEARNED_POSITION[0] in sd:  # convert_state_dict has no entry for these
+        tree["params"]["position_embedding"] = {
+            name: sd[key] for name, key in zip(("row_embed", "col_embed"), LEARNED_POSITION)}
+    return tree
 
 
 def get_checkpoint_state(model, optimizer, epoch, best_result, best_epoch):

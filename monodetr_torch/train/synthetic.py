@@ -1,5 +1,6 @@
-"""Synthetic training batches at the shipped input size, made from a seed
-with numpy (no image files): normalised 384x1280 images, KITTI P2
+"""Synthetic training batches, made from a seed with numpy (no image
+files): normalised images at the shipped 384x1280 or any other size
+(768x2560 for the stress configuration), KITTI P2
 matrices whose focal length and principal point vary a little, and padded
 targets with 1-8 objects per image whose 2-D and 6-D boxes agree.  Used by
 chip_smoke.py and monodetr_torch.profile_train on the card."""
@@ -35,12 +36,13 @@ def make_targets(rng, B, T=50, max_objects=8):
 
 
 class SyntheticLoader:
-    """`n_batches` batches of `batch` normalised 384x1280 images from a
-    seed, each with a KITTI P2 whose focal length and principal point vary
+    """`n_batches` batches of `batch` normalised height x width images from
+    a seed, each with a KITTI P2 whose focal length and principal point vary
     a little, in the loader's (batch, infos) format, with training targets."""
 
-    def __init__(self, n_batches, batch, seed):
+    def __init__(self, n_batches, batch, seed, height=384, width=1280):
         self.n_batches, self.batch, self.seed = n_batches, batch, seed
+        self.height, self.width = height, width
         # meanshape: False in the shipped config -> zero mean sizes
         self.dataset = type("Dataset", (), {"cls_mean_size": np.zeros((3, 3), np.float32)})
 
@@ -54,7 +56,7 @@ class SyntheticLoader:
             calibs = np.repeat(p2[None], n, 0)
             calibs[:, 0, 0] = calibs[:, 1, 1] = 700 + 40 * rng.random(n, np.float32)
             calibs[:, :2, 2] += rng.normal(0, 5, (n, 2)).astype(np.float32)
-            images = rng.standard_normal((n, 384, 1280, 3), np.float32)
+            images = rng.standard_normal((n, self.height, self.width, 3), np.float32)
             sizes = np.tile(np.array([[1242.0, 375.0]], np.float32), (n, 1))
             infos = [{"img_id": b * n + i, "img_size": sizes[i]} for i in range(n)]
             batch = {"images": images, "calibs": calibs, "img_sizes": sizes}

@@ -26,11 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+
 from monodetr_torch.models.monodetr import build_monodetr
 from monodetr_torch.models.transformer import encoder_reference_points
 from monodetr_torch.ops.attention import (attention_keep_mask, attention_plain,
                                           fused_attention, fused_attention_bwd)
-from monodetr_torch.ops.lap import lap_solve, lap_solve_plain
+from monodetr_torch.ops.lap import lap_edge_cases, lap_solve, lap_solve_plain
 from monodetr_torch.ops.msda import ms_deform_attn
 from monodetr_torch.ops.msda_enc import (ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd,
                                          ms_deform_attn_enc_fused_plain, window_limit)
@@ -49,6 +50,10 @@ torch.set_num_threads(2)
 H, L, P, D = 8, 4, 4, 32
 SHAPES = ((8, 16), (4, 8), (2, 4), (1, 2))
 FULL_SHAPES = ((48, 160), (24, 80), (12, 40), (6, 20))
+# the stress configuration's pyramid (768x2560), and the dilated backbone's
+# at 384x1280: its last two levels are equal
+STRESS_SHAPES = ((96, 320), (48, 160), (24, 80), (12, 40))
+DILATED_SHAPES = ((48, 160), (24, 80), (24, 80), (12, 40))
 DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)]
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
@@ -70,7 +75,8 @@ def max_err(got, want):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("shapes,window", [(SHAPES, 6), (SHAPES, 8), (FULL_SHAPES, 6)])
+@pytest.mark.parametrize("shapes,window", [(SHAPES, 6), (SHAPES, 8), (FULL_SHAPES, 6),
+                                           (STRESS_SHAPES, 6), (DILATED_SHAPES, 6)])
 def test_enc_fused_kernel(cuda, dtype, tol, shapes, window):
     rng = np.random.RandomState(window)
     S = sum(h * w for h, w in shapes)
@@ -317,7 +323,7 @@ def enc_inputs(shapes, B, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES])
+@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES, STRESS_SHAPES, DILATED_SHAPES])
 def test_enc_fused_backward_kernel(cuda, dtype, shapes):
     (value, off, logits), g = enc_inputs(shapes, 2, dtype, 3)
     before = ms_deform_attn_enc_fused_bwd.launches
@@ -360,7 +366,8 @@ def test_sep_backward_kernel(cuda, dtype, q):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tq,tk,p", [(1920, 1920, 0.0), (550, 1920, 0.1), (130, 70, 0.5)])
+@pytest.mark.parametrize("tq,tk,p", [(1920, 1920, 0.0), (550, 1920, 0.1), (130, 70, 0.5),
+                                     (7680, 7680, 0.1), (550, 7680, 0.1)])
 def test_attention_forward_and_backward_with_the_kernels_mask(cuda, dtype, tq, tk, p):
     """With the keep mask the kernels draw, the kernel's output and
     gradients match autograd through the plain version."""
@@ -446,9 +453,19 @@ def lap_problems(n_problems, N, seed, device):
     return (torch.from_numpy(cost).to(device), torch.from_numpy(valid).to(device))
 
 
-@pytest.mark.parametrize("N", [50, 7, 64])
-def test_lap_kernel_is_bit_identical(cuda, N):
-    cost, valid = lap_problems(528, N, N, cuda)
+LAP_EDGE_CASES = {name: (cost, valid) for name, cost, valid in lap_edge_cases()}
+
+
+@pytest.mark.parametrize("case", ["N=50", "N=7", "N=64"] + list(LAP_EDGE_CASES))
+def test_lap_kernel_is_bit_identical(cuda, case):
+    """528 problems at N = 50, 7 and 64, and ops/lap.py:lap_edge_cases
+    (zeros of both signs, exact ties, scattered validity, no valid row, N
+    of 1, 31, 32, 33 and 64 in odd counts of problems)."""
+    if case in LAP_EDGE_CASES:
+        cost, valid = (torch.from_numpy(x).to(cuda) for x in LAP_EDGE_CASES[case])
+    else:
+        N = int(case[2:])
+        cost, valid = lap_problems(528, N, N, cuda)
     before = lap_solve.launches
     got = lap_solve(cost, valid)
     assert lap_solve.launches == before + 1
@@ -863,9 +880,42 @@ def test_loc_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert before == [f.launches for pair in LOC_KERNELS.values() for f in pair]
 
 
-def test_remat_scopes_are_refused_by_name(cuda):
-    """`model.remat: encoder` is not ported: building raises, on the card as
-    on the CPU, rather than training without rematerialisation."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section A4"):
-        build_monodetr(dict(remat="encoder", enc_layers=1, dec_layers=1), seed=0).to(cuda)
-    build_monodetr(dict(remat="none", enc_layers=1, dec_layers=1), seed=0).to(cuda)
+def test_remat_step_on_the_card_equals_the_step_without(cuda):
+    """One f32 train step (2 + 2 layers, 128x256, B=2, dropout 0.1 from
+    one CUDA generator) with remat True and without: the losses and the
+    generator's final state equal, every gradient within 1e-5 of its
+    largest entry (kernels 1 and 2 sum the value gradient by atomics, in
+    another order from run to run; the same bound holds two runs without
+    remat to each other)."""
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.train.synthetic import make_targets
+    from monodetr_torch.train.train_step import TARGET_KEYS
+
+    cfg = dict(msda_impl="fused", msda_window=6, dec_msda_impl="sep", enc_layers=2,
+               dec_layers=2, dropout=0.1)
+    models = {remat: build_monodetr(dict(cfg, remat=remat), seed=0).to(cuda)
+              for remat in (False, True)}
+    crit = SetCriterion(cfg)
+    rng = np.random.RandomState(5)
+    images = torch.from_numpy(rng.randn(2, 128, 256, 3).astype(np.float32)).to(cuda)
+    calibs = torch.tensor([[700.0, 0, 600, 45], [0, 700, 170, 0], [0, 0, 1, 0]],
+                          device=cuda).expand(2, 3, 4)
+    sizes = torch.tensor([[1242.0, 375.0]], device=cuda).expand(2, 2)
+    targets = {k: torch.from_numpy(v).to(cuda) for k, v in make_targets(rng, 2).items()
+               if k in TARGET_KEYS}
+    runs = []
+    for remat in (False, True, False):
+        model = models[remat]
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        out = model(images, calibs, sizes, train=True, gen=gen)
+        losses = crit(out, targets)
+        crit.total(losses).backward()
+        runs.append((torch.stack([losses[k].detach() for k in sorted(losses)]),
+                     {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None}, gen.get_state()))
+    for other in runs[1:]:
+        assert torch.equal(other[0], runs[0][0]) and torch.equal(other[2], runs[0][2])
+        assert other[1].keys() == runs[0][1].keys()
+        for n, g in runs[0][1].items():
+            assert (other[1][n] - g).abs().max() <= 1e-5 * g.abs().max() + 1e-12, n

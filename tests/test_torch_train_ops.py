@@ -3,7 +3,13 @@
 - box ops: equal within rtol 1e-6, atol 1e-6;
 - lap_solve_plain bit-identical to matcher.lap_solve (random, tie-heavy,
   all-invalid, masked rectangular costs) and optimal as scipy's
-  linear_sum_assignment is (equal total cost);
+  linear_sum_assignment is (equal total cost); on the solver's edge cases
+  (ops/lap.py:lap_edge_cases: zeros of both signs, exact ties,
+  scattered validity, no valid row, N of 1, 31, 32, 33 and 64) bit-identical
+  to matcher.lap_solve and to lap_pallas.lap_solve_pallas in interpret
+  mode; and a model of the CUDA kernel's parallel greedy start (every row's
+  argmin at once, a column to the lowest valid row claiming it) equal to
+  the sequential start of the kernel's first layout on the same problems;
 - gradients of the kernels' plain versions against jax.grad of their JAX
   oracles: the encoder's (softmax -> clip -> windowed sampling,
   tests/test_msda_enc_fused.py:oracle) and the decoder's
@@ -27,10 +33,11 @@ import jax.numpy as jnp
 from monodetr_tpu.models.layers import MultiheadAttention as JaxMHA
 from monodetr_tpu.models.matcher import lap_solve as jax_lap_solve
 from monodetr_tpu.ops import box_ops as jax_box_ops
+from monodetr_tpu.ops.lap_pallas import lap_solve_pallas
 from monodetr_tpu.ops.msda import ms_deform_attn_reference
 from monodetr_torch.models.layers import MultiheadAttention, dropout
 from monodetr_torch.ops import box_ops
-from monodetr_torch.ops.lap import lap_solve, lap_solve_plain
+from monodetr_torch.ops.lap import lap_edge_cases, lap_solve, lap_solve_plain
 from monodetr_torch.ops.msda import ms_deform_attn
 from monodetr_torch.ops.msda_enc import ms_deform_attn_enc_fused
 from tests.test_msda_enc_fused import SHAPES, oracle
@@ -215,3 +222,57 @@ def test_lap_plain_counts_its_dijkstra_iterations():
     greedy_free = [len(set(range(9))) - len(set(cost[p].argmin(1).tolist())) for p in range(5)]
     assert steps[0] == 0 and all(int(steps[p]) >= greedy_free[p] for p in range(5))
     assert steps[1:5].min() > 0
+
+
+EDGE_CASES = {name: (cost, valid) for name, cost, valid in lap_edge_cases()}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_lap_edge_cases_match_jax_and_pallas(case):
+    """The kernel's edge cases: lap_solve_plain, matcher.lap_solve and the
+    Pallas kernel (interpret mode) give the same assignment, bit for bit."""
+    cost, valid = EDGE_CASES[case]
+    got = lap_solve_plain(torch.from_numpy(cost), torch.from_numpy(valid)).numpy()
+    want = np.asarray(jax.jit(jax.vmap(jax_lap_solve))(jnp.asarray(cost), jnp.asarray(valid)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        np.asarray(lap_solve_pallas(jnp.asarray(cost), jnp.asarray(valid))), got)
+    assert (got[~valid] == -1).all() and (got[valid] >= 0).all()
+
+
+def greedy_sequential(cost, valid):
+    """The first CUDA layout's greedy start: rows in ascending order, each
+    valid row taking its argmin column if no earlier row took it."""
+    col4row = np.full(valid.shape, -1)
+    for p in range(len(cost)):
+        taken = set()
+        for i in range(cost.shape[1]):
+            j = int(np.argmin(cost[p, i]))
+            if valid[p, i] and j not in taken:
+                taken.add(j)
+                col4row[p, i] = j
+    return col4row
+
+
+def greedy_parallel(cost, valid):
+    """csrc/lap.cu's greedy start: every row's argmin (the lowest column of
+    the minimum, -0.0 == +0.0) at once, each column claimed by the lowest
+    valid row whose argmin it is (the shared atomicMin), a row matched iff
+    its claim won."""
+    P, N, _ = cost.shape
+    jmin = np.argmin(cost, 2)
+    claim = np.full((P, N), N)
+    for p in range(P):
+        np.minimum.at(claim[p], jmin[p][valid[p]], np.flatnonzero(valid[p]))
+    has = valid & (np.take_along_axis(claim, jmin, 1) == np.arange(N))
+    return np.where(has, jmin, -1)
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES) + ["ties", "rect"])
+def test_parallel_greedy_start_equals_sequential(case):
+    cost, valid = EDGE_CASES[case] if case in EDGE_CASES else lap_cases()[case]
+    par = greedy_parallel(cost, valid)
+    np.testing.assert_array_equal(par, greedy_sequential(cost, valid))
+    if valid.any():  # what the solver keeps of the start: its rows stay matched
+        assert ((lap_solve_plain(torch.from_numpy(cost), torch.from_numpy(valid)).numpy() >= 0)
+                >= (par >= 0)).all()
