@@ -57,9 +57,32 @@ Phases, one line each (or a few), and any failure exits non-zero:
      40,800 encoder tokens, attention over 7,680); and one f32 step at B=1
      with dropout 0.1 with remat and without, from one generator seed: the
      losses and the generator's final state bit-equal, every gradient
-     within REMAT_GRAD_TOL.
+     within REMAT_GRAD_TOL;
+  9. the query variants (`two_stage`, `use_dab`, `two_stage_dino`) of the
+     shipped model, default impls, bf16, batch 16, 384x1280, one model
+     built per variant: `use_dab` and `two_stage_dino` train 2 steps at
+     group_num 11 (550 queries), `two_stage` at group_num 1 (its 50
+     proposals), each with its launch counters and ms/step; two_stage's
+     group_num 11 raises the criterion's ValueError; each runs one
+     `Tester.inference` batch, then its f32 forward at B=2 through the
+     kernels against the plain versions (two_stage's encoder outputs too),
+     and one f32 step at B=1 without dropout against the plain versions
+     (matches, losses, gradients; each gradient against the nearer of two
+     plain steps one ulp of input apart, the plain runs on the kernel
+     run's proposal picks: phase_train_vs_plain);
+ 10. data parallel (parallel/ddp.py) on the card: world size 1 over NCCL
+     through init_distributed, one bf16 step at batch 16 with dropout 0.1
+     against the step without dp from the same seeds (losses and the
+     generator's state bit-equal, the all-reduce returning every gradient
+     bit for bit, the gradients beside two steps without dp); then two
+     gloo ranks sharing the card, 2 images each, f32 without dropout,
+     against one process on the 4 (parallel/dryrun.py:
+     compare_with_one_process: losses, gradients, every parameter after
+     AdamW against the difference its two gradients imply, identical on
+     both ranks, and the parallel eval step's gathered detections).  NCCL refuses two ranks on one card, so NCCL is
+     exercised at world size 1 only.
 The kernel report (JSON) sums each kernel's launches over the main-path
-runs of phases 5-8 and fails if one of them is 0; it is the second-to-last
+runs of phases 5-10 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
 least time the card could take for the same work at the timed shape
 (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s and its
@@ -83,6 +106,7 @@ the other on one card (the wrappers they call are `ms_deform_attn_sep`,
 also needs `lap_step_latencies` and `lap_edge_cases` in ops/lap.py).
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -192,6 +216,11 @@ CONFIG_B = {"msda_impl": "sepwin", "dec_msda_impl": "sep"}
 # default impls on ResNet-101 at twice the input size, batch 2, remat on
 STRESS = {"backbone": "resnet101", "remat": True}
 STRESS_SIZE, STRESS_BATCH = (768, 2560), 2
+# the query variants: overrides of configs/monodetr.yaml's model; two_stage
+# trains its num_queries proposals as one group
+VARIANTS = {"two_stage": {"two_stage": True, "group_num": 1},
+            "use_dab": {"use_dab": True},
+            "two_stage_dino": {"two_stage_dino": True}}
 # a gradient of the step with remat against the step without, max |a - b| /
 # max |b| per tensor: the recompute repeats the kernels' sums, and the
 # atomics of kernels 1 and 2 (and cuDNN's weight gradients) add in another
@@ -926,10 +955,11 @@ def main_path_counts(per_run, n_runs, label):
 
 
 def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
-                     per_forward=None, check_plain=True, batch=16, size=(384, 1280)):
+                     per_forward=None, check_plain=True, batch=16, size=(384, 1280), base=None):
     """Tester.inference in bf16 at `batch` with the launch counts read
     around it; then the f32 forward at B=2 and the same `size`, kernels
-    against plain versions."""
+    against plain versions.  `base`: the f32 model on the card to copy
+    (else one is built)."""
     import logging
 
     from monodetr_torch.config import MONODETR_MODEL
@@ -937,7 +967,10 @@ def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
     from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
 
     cfg = dict(MONODETR_MODEL, **(overrides or {}))
-    model = build_monodetr(cfg, seed=444).to("cuda", compute_dtype(cfg))
+    def fresh():
+        return copy.deepcopy(base) if base is not None else build_monodetr(cfg, seed=444).cuda()
+
+    model = fresh().to(compute_dtype(cfg))
     logging.basicConfig(level=logging.WARNING)
     # threshold 0: random weights score every pick near the 0.01 class
     # prior, and the decode of all 50 picks per image is what is checked
@@ -972,17 +1005,21 @@ def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
     # from its plain version by summation order (<= ~5e-5 per op), which
     # the layer norms and the inverse-sigmoid refinement may amplify.
     tol = 1e-3
-    model = build_monodetr(cfg, seed=444).to("cuda", torch.float32)
+    model = fresh().float()
     b2, _ = next(iter(SyntheticLoader(1, 2, 1, *size)))
     inputs = [torch.from_numpy(b2[k]).cuda() for k in ("images", "calibs", "img_sizes")]
     with torch.no_grad():
         got = model(*inputs)
         want = model.use_plain_ops(True)(*inputs)
     torch.cuda.synchronize()
-    errs = {k: ((got[k] - want[k]).abs() / (1 + want[k].abs())).max().item()
-            for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth")}
+    pairs = {k: (got[k], want[k])
+             for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth")}
+    if "enc_outputs" in want:  # two_stage's proposals
+        pairs.update({"enc_" + k: (got["enc_outputs"][k], want["enc_outputs"][k])
+                      for k in ("pred_logits", "pred_boxes")})
+    errs = {k: ((a - b).abs() / (1 + b.abs())).max().item() for k, (a, b) in pairs.items()}
     ok = all(e <= tol for e in errs.values()) and all(
-        torch.isfinite(got[k]).all().item() for k in errs)
+        torch.isfinite(a).all().item() for a, _ in pairs.values())
     log(f"{label}: f32 forward B=2 {size[0]}x{size[1]}, kernels vs plain versions: "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
         + f" (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
@@ -996,11 +1033,13 @@ DEFAULT_PER_STEP = {"msda_enc_fused": 3, "msda_enc_fused_bwd": 3, "msda_sep": 3,
 
 
 def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_STEP,
-                      n_steps=6, batch=16, size=(384, 1280)):
+                      n_steps=6, batch=16, size=(384, 1280), base=None):
     """bf16 train steps at `batch` with dropout 0.1 through the kernels;
     launch counts, finite and moving losses, bf16 kernel inputs, step time
     and the peak memory of the steps (model, AdamW state and batches
-    included).  Returns (counts, ms/step from the third step on, peak GiB)."""
+    included).  `base`: the f32 model on the card to copy (else one is
+    built).  Returns (counts, ms/step from the third step on, or the last
+    step's when there are fewer than 3, peak GiB)."""
     from monodetr_torch.config import MONODETR_MODEL
     from monodetr_torch.models.criterion import SetCriterion
     from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
@@ -1008,7 +1047,8 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
     from monodetr_torch.train.train_step import batch_to_device, make_train_step
 
     cfg = dict(MONODETR_MODEL, **(overrides or {}))
-    model = build_monodetr(cfg, seed=444).cuda()  # f32 parameters
+    # f32 parameters
+    model = copy.deepcopy(base) if base is not None else build_monodetr(cfg, seed=444).cuda()
     opt = build_optimizer({"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4}, model)
     dtype = compute_dtype(cfg)
     step = make_train_step(model, SetCriterion(cfg), opt, dtype)
@@ -1058,11 +1098,29 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
     return counts, steady, peak
 
 
-def phase_train_vs_plain(label="train vs plain", overrides=None, batch=2, size=(384, 1280)):
+def grad_errors(got, want):
+    """Per tensor, max |got - want| / (1e-3 max|want| + 1e-6)."""
+    return {n: ((got[n] - g).abs().max() / (1e-3 * g.abs().max() + 1e-6)).item()
+            for n, g in want.items()}
+
+
+def phase_train_vs_plain(label="train vs plain", overrides=None, batch=2, size=(384, 1280),
+                         perturbed=False, model=None):
     """One f32 train step at `batch` and `size` without dropout through the
     kernels and through the plain versions (LAP included): identical
     matches, losses to 1e-4 relative, every gradient to 1e-3 * max|g_plain|
-    + 1e-6."""
+    + 1e-6.  `model`: the f32 model on the card to copy (else one is built).
+
+    With `perturbed` (the query variants) the plain step runs a second
+    time, on the images times (1 + 2^-23), and a gradient passes where it
+    is within that bound of either plain step's; the matches of all three
+    runs must be identical.  A decoder sample that a rounding-level move
+    takes across a pixel's edge changes its bilinear derivative by a step,
+    so two plain steps one ulp of input apart can differ past the bound in
+    the decoder's sampling offsets.  Both plain runs take the kernel run's
+    proposal picks (`proposal_idx`), since near-tied scores may order
+    differently; the plain run's own top-k, from a forward without them,
+    must hold at least 99% of those picks."""
     import monodetr_torch.models.matcher as matcher
     from monodetr_torch.config import MONODETR_MODEL
     from monodetr_torch.models.criterion import SetCriterion
@@ -1070,7 +1128,7 @@ def phase_train_vs_plain(label="train vs plain", overrides=None, batch=2, size=(
     from monodetr_torch.train.train_step import TARGET_KEYS, batch_to_device
 
     cfg = dict(MONODETR_MODEL, dropout=0.0, **(overrides or {}))
-    model = build_monodetr(cfg, seed=444).cuda()
+    model = copy.deepcopy(model) if model is not None else build_monodetr(cfg, seed=444).cuda()
     with torch.no_grad():  # encoder samples off integer positions (enc_offsets)
         for layer in model.depthaware_transformer.encoder.layers:
             bias = layer.self_attn.sampling_offsets.bias
@@ -1080,35 +1138,57 @@ def phase_train_vs_plain(label="train vs plain", overrides=None, batch=2, size=(
     b, _ = next(iter(SyntheticLoader(1, batch, 3, *size)))
     b = batch_to_device(b, "cuda")
     targets = {k: b[k] for k in TARGET_KEYS}
-    results = []
-    for m, lap in ((model, lap_solve), (plain, lap_solve_plain)):
+    runs = [(model, lap_solve, b["images"]), (plain, lap_solve_plain, b["images"])]
+    if perturbed:
+        runs.append((copy.deepcopy(plain), lap_solve_plain, b["images"] * (1 + 2 ** -23)))
+    picks, results = None, []
+    for m, lap, images in runs:
         matcher.lap_solve = lap
         try:
-            out = m(b["images"], b["calibs"], b["img_sizes"], train=True)
+            out = m(images, b["calibs"], b["img_sizes"], train=True, proposal_idx=picks)
             matched = crit.match(out, targets)
             losses = crit(out, targets)
         finally:
             matcher.lap_solve = lap_solve
         crit.total(losses).backward()
+        picks = out.get("proposal_idx") if picks is None else picks
         results.append((matched, losses, {n: p.grad for n, p in m.named_parameters()
                                           if p.grad is not None}))
-    (m_k, l_k, g_k), (m_p, l_p, g_p) = results
-    same = torch.equal(m_k, m_p)
+    own = None
+    if picks is not None:  # the plain run's own top-k against the pinned picks
+        with torch.no_grad():
+            mine = plain(b["images"], b["calibs"], b["img_sizes"], train=True)["proposal_idx"]
+        own = np.mean([np.isin(a, p).mean() for a, p in zip(mine.cpu().numpy(),
+                                                            picks.cpu().numpy())])
+    (m_k, l_k, g_k), (m_p, l_p, g_p) = results[:2]
+    same = all(torch.equal(m, m_p) for m, _, _ in results)
     loss_err = max(abs(l_k[k].item() - l_p[k].item()) / max(abs(l_p[k].item()), 1e-12)
                    for k in l_p)
-    worst, worst_name = 0.0, ""
-    for n, gp in g_p.items():
-        e = ((g_k[n] - gp).abs().max() / (1e-3 * gp.abs().max() + 1e-6)).item()
-        if e > worst:
-            worst, worst_name = e, n
-    ok = same and loss_err <= 1e-4 and worst <= 1.0 and g_k.keys() == g_p.keys()
-    log(f"{label}: f32 step B={batch} {size[0]}x{size[1]}, dropout 0: matches identical {same}, "
-        f"losses max rel "
+    errs = grad_errors(g_k, g_p)
+    if perturbed:  # each tensor against the nearer of the two plain steps
+        other = grad_errors(g_k, results[2][2])
+        past = {n: (e, other[n]) for n, e in errs.items() if e > 1.0}
+        errs = {n: min(e, other[n]) for n, e in errs.items()}
+    worst_name = max(errs, key=errs.get)
+    diff = (g_k[worst_name] - g_p[worst_name]).abs().max().item()
+    ok = (same and loss_err <= 1e-4 and g_k.keys() == g_p.keys()
+          and errs[worst_name] <= 1.0 and (own is None or own >= 0.99))
+    log(f"{label}: f32 step B={batch} {size[0]}x{size[1]}, dropout 0: matches identical {same}"
+        + (" in all 3 runs" if perturbed else "") + f", losses max rel "
         f"{loss_err:.2e} (tol 1e-4), {len(g_p)} gradients: worst |a-b| / (1e-3 max|b| + 1e-6) "
-        f"{worst:.3f} at {worst_name} (<= 1) {'ok' if ok else 'FAIL'}")
+        f"{errs[worst_name]:.3f} at {worst_name} (max|a-b| {diff:.2e}, max|b| "
+        f"{g_p[worst_name].abs().max().item():.2e}) (<= 1"
+        + ("; against the nearer of the plain steps on the images and on the images x "
+           "(1 + 2^-23); past 1 against the first: "
+           + (", ".join(f"{n} {e:.3f}, against the second {f:.3f}" for n, (e, f) in past.items())
+              or "none") if perturbed else "")
+        + ")"
+        + (f"; plain runs pinned to the kernel run's {picks.shape[1]} proposal picks, the plain "
+           f"run's own top-k holds {own:.4f} of them (>= 0.99)" if own is not None else "")
+        + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{label}: the f32 step through the kernels disagrees")
-    del model, plain, results
+    del model, plain, results, runs
     torch.cuda.empty_cache()
 
 
@@ -1163,6 +1243,172 @@ def phase_stress_remat():
         raise RuntimeError("stress: the step with remat differs from the step without")
     del models, model, runs
     torch.cuda.empty_cache()
+
+
+def phase_two_stage_grouped():
+    """two_stage at the config's group_num 11: its training forward gives 50
+    proposals, which do not split into 11 groups; the train step raises the
+    criterion's ValueError (the JAX matcher fails at a reshape there)."""
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
+    from monodetr_torch.train.optimizer import build_optimizer
+    from monodetr_torch.train.train_step import batch_to_device, make_train_step
+
+    cfg = dict(MONODETR_MODEL, two_stage=True)
+    model = build_monodetr(cfg, seed=444).cuda()
+    step = make_train_step(model, SetCriterion(cfg), build_optimizer({"type": "adamw"}, model),
+                           compute_dtype(cfg))
+    b = batch_to_device(next(iter(SyntheticLoader(1, 1, 4)))[0], "cuda")
+    try:
+        step(b, 2e-4, torch.Generator(device="cuda").manual_seed(0))
+    except ValueError as e:
+        ok = "two_stage" in str(e) and "group_num: 1" in str(e)
+        log(f"two_stage at group_num 11: ValueError {'ok' if ok else 'FAIL'}: {e}")
+        if not ok:
+            raise
+    else:
+        raise RuntimeError("two_stage trained at group_num 11; want the criterion's ValueError")
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def phase_variants(add):
+    """Phase 9: each query variant's train slice (2 steps), eval slice
+    (with its f32 forward against the plain versions) and f32 step against
+    the plain versions, all from one model built per variant; `add` takes
+    each main-path run's launch counts.  Returns the second step's ms by
+    variant."""
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.monodetr import build_monodetr
+
+    ms = {}
+    for name, overrides in VARIANTS.items():
+        t0 = time.time()
+        per_step = dict(DEFAULT_PER_STEP)
+        if name == "two_stage":  # 50 x 1920 decoder depth cross-attention: plain
+            per_step.update(attention_fwd=1, attention_bwd=1)
+        base = build_monodetr(dict(MONODETR_MODEL, **overrides), seed=444).cuda()
+        counts, ms[name], _ = phase_train_slice(f"{name} train", overrides, per_step, n_steps=2,
+                                                base=base)
+        add(counts)
+        add(phase_eval_slice(f"{name} eval", overrides, 1, base=base))
+        phase_train_vs_plain(f"{name} train vs plain", overrides, batch=1, perturbed=True,
+                             model=base)
+        del base
+        log(f"{name}: phase 9 in {time.time() - t0:.1f} s")
+    phase_two_stage_grouped()
+    return ms
+
+
+def phase_dp_nccl():
+    """World size 1 over NCCL through init_distributed: one bf16 train step
+    of the shipped model at batch 16, dropout 0.1, with dp against the step
+    without from the same seeds, and a second step without: the losses and
+    the generator's final state bit-equal, the all-reduce returns every
+    gradient bit for bit, and the gradients of the step with dp differ from
+    the first step's only as much as the second's do (the atomics of
+    kernels 1 and 2 add in another order from run to run; in bf16 such a
+    difference may flip a rounding).  Returns the dp step's launch counts."""
+    import torch.distributed as dist
+
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
+    from monodetr_torch.parallel.ddp import DataParallel, init_distributed
+    from monodetr_torch.parallel.dryrun import free_port
+    from monodetr_torch.train.optimizer import build_optimizer
+    from monodetr_torch.train.train_step import batch_to_device, make_train_step
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    init_distributed("cuda")
+    try:
+        backend = dist.get_backend()
+        dp = DataParallel()
+        exact = []
+        sum_grads = dp.sum_grads
+
+        def checked_sum_grads(params):
+            before = [p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                      for p in params]
+            sum_grads(params)
+            exact.append(all(torch.equal(p.grad, g) for p, g in zip(params, before)))
+
+        dp.sum_grads = checked_sum_grads
+        cfg = dict(MONODETR_MODEL)
+        b = batch_to_device(next(iter(SyntheticLoader(1, 16, 8)))[0], "cuda")
+        runs, counts = [], None
+        base = build_monodetr(cfg, seed=444).cuda()
+        for use_dp in (False, True, False):
+            model = copy.deepcopy(base)
+            step = make_train_step(model, SetCriterion(cfg),
+                                   build_optimizer({"type": "adamw", "lr": 2e-4}, model),
+                                   compute_dtype(cfg), dp if use_dp else None)
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            reset_launches()
+            losses = step(b, 2e-4, gen)
+            torch.cuda.synchronize()
+            if use_dp:
+                counts = main_path_counts(DEFAULT_PER_STEP, 1, "dp nccl")
+            runs.append((losses.values, {n: p.grad for n, p in model.named_parameters()
+                                         if p.grad is not None}, gen.get_state()))
+            del model, step
+        del base
+    finally:
+        dist.destroy_process_group()
+
+    def worst(a, b):
+        return max(((a[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                   for n, g in b.items())
+
+    (l0, g0, s0), (l1, g1, s1), (l2, g2, s2) = runs
+    dp_err, noise = worst(g1, g0), worst(g2, g0)
+    ok = (backend == "nccl" and torch.equal(l1, l0) and torch.equal(s1, s0)
+          and exact == [True] and g1.keys() == g0.keys() and torch.isfinite(l1).all().item()
+          and dp_err <= GRAD_TOL[torch.bfloat16])
+    log(f"dp nccl: world 1 over {backend}, bf16 step batch 16 384x1280, dropout 0.1: losses "
+        f"bit-equal {torch.equal(l1, l0)}, generator state equal {torch.equal(s1, s0)}, "
+        f"all-reduce returns every gradient bit for bit {exact == [True]}, {len(g0)} gradients: "
+        f"worst max|dp - no dp| / max|no dp| {dp_err:.2e} (tol {GRAD_TOL[torch.bfloat16]:.0e}); "
+        f"two steps without dp: {noise:.2e}; launches {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("dp nccl: the world-1 step differs from the step without dp")
+    del runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dp_gloo():
+    """Two gloo ranks sharing cuda:0, 2 images each at 384x1280, the
+    shipped widths and depths in f32 without dropout, against one process on
+    the 4 (parallel/dryrun.py:compare_with_one_process): losses 1e-5
+    relative, gradients within the train step's tolerance, every parameter
+    after AdamW within 1e-5 of the difference its two gradients imply
+    (dryrun.py:step_report), with at most 0.1% of the elements implied to
+    differ by more than 1e-5, the parameters identical on both ranks, and
+    the parallel eval step's gathered detections to 1e-4 of (1 + |b|) (cuDNN
+    picks its algorithms by batch size).  Returns rank 0's launch counts of
+    its dp step."""
+    from monodetr_torch.parallel.dryrun import compare_with_one_process
+
+    t0 = time.time()
+    r = compare_with_one_process(2, "cuda:0", "gloo", 384, 1280, 2, 3, 3, timeout=600)
+    ok = (r["loss_err"] <= 1e-5 and r["grad_err"] <= 1.0 and r["param_err"] <= 1e-5
+          and r["moved_share"] <= 1e-3 and r["n_equal"] == 2
+          and r["dets_shape"] == [4, 50, 37] and r["dets_err"] <= 1e-4
+          and r["launches"] == DEFAULT_PER_STEP and r["backend"] == "gloo")
+    log(f"dp gloo: 2 ranks on {r['device']} over {r['backend']}, 2 images each, f32 step vs one "
+        f"process on 4: losses max rel {r['loss_err']:.2e} (tol 1e-5), {r['n_grads']} gradients: "
+        f"worst |a-b| / (1e-3 max|b| + 1e-6) {r['grad_err']:.3f} (<= 1), parameters after AdamW "
+        f"{r['param_err']:.2e} from the difference their gradients imply (tol 1e-5; implied "
+        f"past 1e-5 for {100 * r['moved_share']:.4f}% of the elements, <= 0.1%, at most "
+        f"{r['moved_max']:.2e}), identical on {r['n_equal']} of 2 ranks; eval "
+        f"detections {r['dets_shape']} {r['dets_err']:.2e} (tol 1e-4); rank 0 launches "
+        f"{r['launches']}; {time.time() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("dp gloo: the two-rank step differs from the one-process step")
+    return r["launches"]
 
 
 def main(argv):
@@ -1222,6 +1468,15 @@ def main(argv):
     add(phase_eval_slice("stress eval", STRESS, 1, batch=STRESS_BATCH, size=STRESS_SIZE))
     phase_train_vs_plain("stress train vs plain", STRESS, batch=1, size=STRESS_SIZE)
     phase_stress_remat()
+    t0 = time.time()
+    variant_ms = phase_variants(add)
+    log(f"phase 9 (query variants) in {time.time() - t0:.1f} s")
+    log(f"train ms/step, bf16 batch 16 (smoke readings): default (fused + sep, steps 3-6) "
+        f"{default_ms:.1f}; step 2: " + ", ".join(f"{k} {v:.1f}" for k, v in variant_ms.items()))
+    t0 = time.time()
+    add(phase_dp_nccl())
+    add(phase_dp_gloo())
+    log(f"phase 10 (data parallel) in {time.time() - t0:.1f} s")
     idle = [k for k, v in totals.items() if v == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")

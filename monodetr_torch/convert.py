@@ -1,9 +1,14 @@
 """JAX parameter tree -> monodetr_torch state_dict.
 
 `params_from_jax` is the inverse of tools/convert_checkpoint.py:
-convert_state_dict for the standard query configuration: it takes the
-flax tree (numpy arrays, as the JAX checkpoints pickle them) and returns
-tensors under the reference `state_dict` names that monodetr_torch uses.
+convert_state_dict for every query configuration (standard, two_stage,
+use_dab, two_stage_dino): it takes the flax tree (numpy arrays, as the JAX
+checkpoints pickle them) and returns tensors under the reference
+`state_dict` names that monodetr_torch uses.  The tree's configuration
+(query_configuration) decides which query tables and layers are read: the
+decoder's ref_point_head and query_scale (use_dab, two_stage_dino), the
+proposal layers, and for two_stage one class and bbox head more than the
+size, angle and depth heads.
 
   - flax Dense kernel [in, out] -> Linear weight [out, in];
   - flax Conv kernel [kh, kw, I, O] -> Conv2d weight [O, I, kh, kw];
@@ -58,6 +63,19 @@ class _Tree:
                 yield from self.unused(v, path + "/")
             elif path not in self.used:
                 yield path
+
+
+def query_configuration(flax_params):
+    """'standard', 'two_stage', 'use_dab' or 'two_stage_dino': the query
+    configuration whose layers the tree holds."""
+    if "params" in flax_params:
+        flax_params = flax_params["params"]
+    tr = flax_params["transformer"]
+    if "pos_trans" in tr:
+        return "two_stage"
+    if "enc_out_class_embed" in tr:
+        return "two_stage_dino"
+    return "use_dab" if "refpoint_embed" in flax_params else "standard"
 
 
 def params_from_jax(flax_params) -> dict:
@@ -151,7 +169,6 @@ def params_from_jax(flax_params) -> dict:
     # ---- transformer ----
     tr, jt = "depthaware_transformer.", "transformer/"
     sd[tr + "level_embed"] = t.get(jt + "level_embed")
-    lin(tr + "reference_points", jt + "reference_points")
     for i in range(count("encoder_layer_", jt)):
         e, je = f"{tr}encoder.layers.{i}.", f"{jt}encoder_layer_{i}/"
         msda(e + "self_attn", je + "self_attn")
@@ -172,15 +189,38 @@ def params_from_jax(flax_params) -> dict:
         lin(d + "linear2", jl + "ffn/linear2")
         norm(d + "norm3", jl + "ffn/norm")
 
-    # ---- queries + heads ----
-    sd["query_embed.weight"] = t.get("query_embed")
-    for i in range(count("class_embed_")):
+    # ---- the query configuration's own layers and the heads ----
+    variant = query_configuration(flax_params)
+    if variant == "standard":
+        lin(tr + "reference_points", jt + "reference_points")
+        sd["query_embed.weight"] = t.get("query_embed")
+    if variant in ("use_dab", "two_stage_dino"):
+        for name in ("ref_point_head", "query_scale"):
+            mlp(f"{tr}decoder.{name}", jt + name)
+    if variant in ("two_stage", "two_stage_dino"):
+        lin(tr + "enc_output", jt + "enc_output")
+        norm(tr + "enc_output_norm", jt + "enc_output_norm")
+    if variant == "two_stage":
+        lin(tr + "pos_trans", jt + "pos_trans")
+        norm(tr + "pos_trans_norm", jt + "pos_trans_norm")
+    elif variant == "two_stage_dino":
+        lin(tr + "enc_out_class_embed", jt + "enc_out_class_embed")
+        mlp(tr + "enc_out_bbox_embed", jt + "enc_out_bbox_embed")
+        sd[tr + "tgt_embed.weight"] = t.get(jt + "tgt_embed")
+    elif variant == "use_dab":
+        for name in ("tgt_embed", "refpoint_embed"):
+            sd[name + ".weight"] = t.get(name)
+    # two_stage's extra head set scores the proposals with class and bbox
+    n_pred = count("class_embed_")
+    for i in range(n_pred):
         lin(f"class_embed.{i}", f"class_embed_{i}")
-        for name in ("bbox_embed", "dim_embed_3d", "angle_embed", "depth_embed"):
-            mlp(f"{name}.{i}", f"{name}_{i}")
+        mlp(f"bbox_embed.{i}", f"bbox_embed_{i}")
+        if i < n_pred - (variant == "two_stage"):
+            for name in ("dim_embed_3d", "angle_embed", "depth_embed"):
+                mlp(f"{name}.{i}", f"{name}_{i}")
 
     left = sorted(t.unused())
     if left:
         raise KeyError(f"params_from_jax: leaves with no counterpart in the "
-                       f"standard configuration: {left[:8]}")
+                       f"{variant} configuration: {left[:8]}")
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

@@ -7,7 +7,8 @@ Checkpoints are the JAX package's format (train/checkpoint.py: a pickle of
 numpy pytrees, `model_state` holding the flax params); they load through
 convert.params_from_jax.  The AP evaluator is the port's copy of the JAX
 package's pure-numpy KITTI evaluator (eval/kitti_eval/), imported at the
-first evaluation.
+first evaluation.  Under data parallel only rank 0 writes result txts
+and evaluates (monodetr_tpu/eval/tester.py:142-153).
 """
 
 import os
@@ -19,6 +20,7 @@ import torch
 
 from ..convert import params_from_jax
 from ..data.kitti_utils import Calibration
+from ..utils.misc import is_main_process
 from .decode import decode_detections, extract_dets_from_outputs, save_results
 
 
@@ -87,7 +89,7 @@ class Tester:
     def load(self, path):
         state = load_checkpoint(path, self.logger)
         sd = params_from_jax(state["model_state"])
-        dtype = self.model.query_embed.weight.dtype
+        dtype = next(self.model.parameters()).dtype
         self.model.load_state_dict({k: v.to(self.device, dtype) for k, v in sd.items()})
 
     def epoch_checkpoints(self):
@@ -170,11 +172,15 @@ class Tester:
         return os.path.join(self.output_dir, "outputs", "data")
 
     def save_results(self, results):
-        save_results(results, self.results_dir)
+        if is_main_process():  # one writer under data parallel
+            save_results(results, self.results_dir)
 
     def evaluate(self):
         """Car moderate AP3D_R40 of the txts that `inference` wrote, against
-        the loader's dataset labels (its label_dir, idx_list, writelist)."""
+        the loader's dataset labels (its label_dir, idx_list, writelist);
+        0 on a rank other than 0."""
+        if not is_main_process():
+            return 0.0
         if not os.path.exists(self.results_dir):
             raise FileNotFoundError(self.results_dir)
         ds = self.dataloader.dataset

@@ -9,6 +9,14 @@ centre, boxes (L1 + GIoU), depths (Laplacian aleatoric), dims
 focal over the min-depth rasterisation of the 2-D boxes).  The aux losses
 repeat all but the depth map for each earlier decoder layer; all layers are
 matched in one solver call.
+
+Data parallel (parallel/ddp.py): given the run's `dp` (its rank count
+`world` and `sum`, a sum over ranks), every term a rank returns is its
+share of the loss of the global batch, so that the shares of all ranks sum
+to the single-process loss on the whole batch: the box count and the
+dimension loss's compensation weight are sums over ranks, the depth-map
+loss and the cardinality error (means over images) are divided by the rank
+count.  The matching stays per image, on the rank's own targets.
 """
 
 import torch
@@ -51,12 +59,13 @@ def loss_labels(outputs, targets, matched_q, num_boxes, focal_alpha=0.25):
 
 
 @torch.no_grad()
-def loss_cardinality(outputs, targets):
-    """Log only: |#argmax != last class - #targets| (monodetr.py:347-359)."""
+def loss_cardinality(outputs, targets, world=1):
+    """Log only: |#argmax != last class - #targets| (monodetr.py:347-359),
+    the mean over images (a rank's share of it: / world)."""
     logits = outputs["pred_logits"]
     card_pred = (logits.argmax(-1) != logits.shape[-1] - 1).sum(-1)
     err = (card_pred.float() - targets["mask"].sum(-1).float()).abs()
-    return {"cardinality_error": err.mean()}
+    return {"cardinality_error": err.mean() / world}
 
 
 def loss_center(outputs, targets, matched_q, num_boxes):
@@ -88,21 +97,24 @@ def loss_depths(outputs, targets, matched_q, num_boxes):
     return {"loss_depth": torch.where(valid, loss, 0.0).sum() / num_boxes}
 
 
-def loss_dims(outputs, targets, matched_q, num_boxes):
+def loss_dims(outputs, targets, matched_q, num_boxes, dp=None):
     """Size-normalised L1 with a no-grad compensation weight
-    (monodetr.py:406-420)."""
+    (monodetr.py:406-420), a ratio of sums over the batch (over all ranks
+    with `dp`)."""
     src = _gather_queries(outputs["pred_3d_dim"], matched_q)  # [B, G, T, 3]
     tgt = targets["size_3d"][:, None, :, :]
     valid = targets["mask"][:, None, :, None]
-    n = (valid.sum() * 3.0).clamp(min=1.0)
     abs_err = (src - tgt).abs()
     # padded target sizes are 0: divide by 1 there, so masked entries put
     # no inf into the backward (0 * inf = NaN)
     safe_tgt = torch.where(valid, tgt.expand_as(src), 1.0).detach()
     dim_loss = abs_err / safe_tgt
-    abs_mean = torch.where(valid, abs_err, 0.0).sum() / n
-    dim_mean = torch.where(valid, dim_loss, 0.0).sum() / n
-    comp = (abs_mean / dim_mean).detach()
+    sums = torch.stack([valid.sum() * 3.0, torch.where(valid, abs_err, 0.0).sum(),
+                        torch.where(valid, dim_loss, 0.0).sum()]).detach()
+    if dp is not None:
+        sums = dp.sum(sums)
+    n = sums[0].clamp(min=1.0)
+    comp = (sums[1] / n) / (sums[2] / n)
     return {"loss_dim": torch.where(valid, dim_loss * comp, 0.0).sum() / num_boxes}
 
 
@@ -121,14 +133,15 @@ def loss_angles(outputs, targets, matched_q, num_boxes):
 
 def loss_depth_map(outputs, targets, fg_weight=13.0, bg_weight=1.0, alpha=0.25, gamma=2.0,
                    depth_min=1e-3, depth_max=60.0, num_bins=80, raster_wh=None,
-                   bin_mode="LID"):
+                   bin_mode="LID", world=1):
     """DDN depth-map loss (ddn_loss.py + balancer.py + focalloss.py).
 
     Each pixel's target is the depth of the nearest valid box covering it
     (the reference paints boxes far to near, criterion.py:156-212), binned;
     focal CE, foreground weighted 13x, normalised by the pixel count.
     `raster_wh` (W, H) scales the normalised boxes; None uses the map's
-    own size."""
+    own size.  world: the rank count of data parallel (the rank's share of
+    the mean over the global batch)."""
     logits = outputs["pred_depth_map_logits"]  # [B, H, W, bins + 1]
     B, Hf, Wf, _ = logits.shape
     valid = targets["mask"]
@@ -154,7 +167,7 @@ def loss_depth_map(outputs, targets, fg_weight=13.0, bg_weight=1.0, alpha=0.25, 
     p_t = torch.exp(logp_t)
     focal = -alpha * (1.0 - p_t) ** gamma * logp_t
     weights = torch.where(fg_mask, fg_weight, bg_weight)
-    return {"loss_depth_map": (focal * weights).sum() / (B * Hf * Wf)}
+    return {"loss_depth_map": (focal * weights).sum() / (B * Hf * Wf) / world}
 
 
 class SetCriterion:
@@ -166,7 +179,10 @@ class SetCriterion:
 
     `targets`: tensors on the outputs' device, padded to [B, T]: labels,
     boxes (cxcywh, normalised), boxes_3d (cxcylrtb), depth [B, T, 1],
-    size_3d, heading_bin [B, T, 1], heading_res [B, T, 1], mask (bool)."""
+    size_3d, heading_bin [B, T, 1], heading_res [B, T, 1], mask (bool).
+    `dp`: None, or data parallel's reduction (parallel/ddp.py:DataParallel:
+    `world`, and `sum(tensor)` over ranks); the losses are then this
+    rank's shares (module docstring)."""
 
     def __init__(self, cfg):
         self.num_classes = cfg.get("num_classes", 3)
@@ -206,31 +222,36 @@ class SetCriterion:
                                self.cost_class, self.cost_3dcenter, self.cost_bbox,
                                self.cost_giou)
 
-    def _single(self, outputs, targets, matched_q, num_boxes):
+    def _single(self, outputs, targets, matched_q, num_boxes, dp=None):
         losses = {}
         losses.update(loss_labels(outputs, targets, matched_q, num_boxes, self.focal_alpha))
         losses.update(loss_center(outputs, targets, matched_q, num_boxes))
         losses.update(loss_boxes(outputs, targets, matched_q, num_boxes))
         losses.update(loss_depths(outputs, targets, matched_q, num_boxes))
-        losses.update(loss_dims(outputs, targets, matched_q, num_boxes))
+        losses.update(loss_dims(outputs, targets, matched_q, num_boxes, dp))
         losses.update(loss_angles(outputs, targets, matched_q, num_boxes))
         return losses
 
-    def __call__(self, outputs, targets, train=True):
+    def __call__(self, outputs, targets, train=True, dp=None):
         group_num = self.group_num if train else 1
-        num_boxes = (targets["mask"].sum().float() * group_num).clamp(min=1.0)
+        world = 1 if dp is None else dp.world
+        n_targets = targets["mask"].sum().float()
+        if dp is not None:
+            n_targets = dp.sum(n_targets)
+        num_boxes = (n_targets * group_num).clamp(min=1.0)
         aux = outputs.get("aux_outputs", [])
         matched = self.match(outputs, targets, train)
         losses = {}
         for i, layer in enumerate(aux + [outputs]):
-            per = self._single({k: layer[k] for k in LAYER_KEYS}, targets, matched[i], num_boxes)
+            per = self._single({k: layer[k] for k in LAYER_KEYS}, targets, matched[i], num_boxes,
+                               dp)
             suffix = "" if i == len(aux) else f"_{i}"
             losses.update({k + suffix: v for k, v in per.items()})
-        losses.update(loss_cardinality(outputs, targets))
+        losses.update(loss_cardinality(outputs, targets, world))
         losses.update(loss_depth_map(
             outputs, targets, depth_min=self.depth_min, depth_max=self.depth_max,
             num_bins=self.num_depth_bins, raster_wh=self.depth_map_raster_wh,
-            bin_mode=self.depth_bin_mode))
+            bin_mode=self.depth_bin_mode, world=world))
         return losses
 
     def total(self, losses):

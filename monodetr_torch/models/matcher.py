@@ -58,6 +58,12 @@ def hungarian_match(pred_logits, pred_boxes, targets, group_num=11,
     targets point at query 0 of their own group and must be masked with
     targets['mask']."""
     *lead, B, QG, C = pred_logits.shape
+    if QG % group_num:
+        # the JAX matcher fails here with a reshape error
+        raise ValueError(
+            f"hungarian_match: {QG} queries do not split into group_num={group_num} "
+            "groups; two_stage trains its num_queries proposals as one group, so it "
+            "trains with group_num: 1")
     nq = QG // group_num
     mask = targets["mask"].bool()
     T = mask.shape[1]

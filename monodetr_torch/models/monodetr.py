@@ -1,17 +1,24 @@
 """MonoDETR: backbone -> input projections -> depth predictor ->
 depth-aware transformer -> per-layer heads with three-way depth fusion
 (monodetr_tpu/models/monodetr.py, reference monodetr.py:150-283), the eval
-and training forward of the standard query configuration, with ResNet-50 or
-ResNet-101 (`backbone`), with or without `dilation`, sine or learned
-position embeddings, and the JAX model's `remat` scopes (check_remat).
+and training forward, with ResNet-50 or ResNet-101 (`backbone`), with or
+without `dilation`, sine or learned position embeddings, the JAX model's
+`remat` scopes (check_remat) and its query configurations: the standard
+learned queries, `two_stage`, `use_dab` and `two_stage_dino`
+(models/transformer.py).
 
 Parameter names are the reference checkpoint's `state_dict` keys, so
 convert.py and tools/convert_checkpoint.py map them to and from the JAX
-parameter tree.  Run the model in a compute dtype by casting it
+parameter tree.  With `two_stage` the class and bbox heads have one set
+more than the decoder has layers (the extra set scores the encoder's
+proposals); the size, angle and depth heads do not, as in the JAX tree
+(monodetr.py:167-186, where flax makes the parameters of a called head
+only).  Run the model in a compute dtype by casting it
 (`model.to(dtype)`); the places where the JAX model computes in f32
-whatever its dtype (reference points, depth logits and bins, the heads'
-outputs and the depth fusion) are f32 here too.  Training keeps f32
-parameters and computes in bf16 under torch.autocast (train/train_step.py).
+whatever its dtype (reference points, the proposal branches, depth logits
+and bins, the heads' outputs and the depth fusion) are f32 here too.
+Training keeps f32 parameters and computes in bf16 under torch.autocast
+(train/train_step.py).
 """
 
 import math
@@ -46,6 +53,8 @@ class MonoDETR(nn.Module):
         self.hidden_dim = hidden_dim
         self.dec_layers = dec_layers
         self.with_box_refine, self.init_box = with_box_refine, init_box
+        self.two_stage, self.use_dab = two_stage, use_dab
+        self.query_free = two_stage or two_stage_dino
         scopes = check_remat(remat)
         # backbone.0 the ResNet, backbone.1 the learned position embedding
         # (the reference's Joiner; the sine table has no parameters)
@@ -62,11 +71,17 @@ class MonoDETR(nn.Module):
             enc_n_points, dec_n_points, two_stage, use_dab, two_stage_dino,
             msda_impl, msda_window, dec_msda_impl, dropout, group_num, num_queries,
             remat="encoder" in scopes)
-        self.query_embed = nn.Embedding(num_queries * group_num, 2 * hidden_dim)
+        # query parameters per configuration (monodetr.py:131-143)
+        if use_dab:
+            self.tgt_embed = nn.Embedding(num_queries * group_num, hidden_dim)
+            self.refpoint_embed = nn.Embedding(num_queries * group_num, 6)
+        elif not self.query_free:
+            self.query_embed = nn.Embedding(num_queries * group_num, 2 * hidden_dim)
+        n_pred = dec_layers + 1 if two_stage else dec_layers
         self.class_embed = nn.ModuleList(
-            nn.Linear(hidden_dim, num_classes) for _ in range(dec_layers))
+            nn.Linear(hidden_dim, num_classes) for _ in range(n_pred))
         self.bbox_embed = nn.ModuleList(
-            MLP(hidden_dim, hidden_dim, 6, 3) for _ in range(dec_layers))
+            MLP(hidden_dim, hidden_dim, 6, 3) for _ in range(n_pred))
         self.dim_embed_3d = nn.ModuleList(
             MLP(hidden_dim, hidden_dim, 3, 2) for _ in range(dec_layers))
         self.angle_embed = nn.ModuleList(
@@ -82,15 +97,23 @@ class MonoDETR(nn.Module):
                 m.plain_ops = plain
         return self
 
-    def forward(self, images, calibs, img_sizes, train=False, gen=None):
+    def forward(self, images, calibs, img_sizes, train=False, gen=None, proposal_idx=None):
         """images [B, H, W, 3] normalised (NHWC, as the JAX model takes
         them); calibs [B, 3, 4] P2; img_sizes [B, 2] original (w, h).
-        train: all num_queries * group_num queries (monodetr.py:239-241),
-        else the first num_queries; gen: the torch.Generator (on the
-        images' device) that every dropout draws from, None for no dropout.
+        train: all num_queries * group_num queries (monodetr.py:235-240;
+        two_stage always takes num_queries proposals), else the first
+        num_queries; gen: the torch.Generator (on the images' device) that
+        every dropout draws from, None for no dropout; proposal_idx: the
+        proposal variants' top-k token indices [B, K] to take instead of
+        their own (a check's argument: it holds a second run to the
+        first run's picks, which near-tied scores may otherwise reorder).
         Returns pred_logits / pred_boxes / pred_3d_dim / pred_depth /
-        pred_angle / pred_depth_map_logits / weighted_depth / aux_outputs."""
-        dtype = self.query_embed.weight.dtype
+        pred_angle / pred_depth_map_logits / weighted_depth / aux_outputs,
+        and with two_stage enc_outputs (the proposals' logits and sigmoid
+        boxes, monodetr.py:324-328); with two_stage or two_stage_dino
+        proposal_idx, the top-k token indices the decoder's queries came
+        from."""
+        dtype = self.depthaware_transformer.level_embed.dtype
         # NHWC memory seen as NCHW: channels_last, no copy
         x = images.to(dtype).permute(0, 3, 1, 2)
         feats = self.backbone[0](x)
@@ -107,10 +130,17 @@ class MonoDETR(nn.Module):
         depth_logits, depth_tokens, weighted_depth, _ = self.depth_predictor(
             srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype), gen)
 
-        queries = self.query_embed.weight if train else self.query_embed.weight[:self.num_queries]
-        hs, refs_in, inter_dims = self.depthaware_transformer(
+        if self.query_free:
+            queries = None
+        elif self.use_dab:
+            queries = torch.cat([self.tgt_embed.weight, self.refpoint_embed.weight], 1)
+        else:
+            queries = self.query_embed.weight
+        if queries is not None and not train:
+            queries = queries[:self.num_queries]
+        hs, refs_in, inter_dims, enc_class, enc_coord, idx = self.depthaware_transformer(
             [s.permute(0, 2, 3, 1) for s in srcs], pos, queries, depth_tokens,
-            self.bbox_embed, self.dim_embed_3d, gen)
+            self.bbox_embed, self.dim_embed_3d, gen, self.class_embed, train, proposal_idx)
 
         fy = calibs[:, 0, 0][:, None].float()  # focal (monodetr.py:242)
         outs = []
@@ -145,6 +175,11 @@ class MonoDETR(nn.Module):
         out["pred_depth_map_logits"] = depth_logits
         out["weighted_depth"] = weighted_depth
         out["aux_outputs"] = outs[:-1]
+        if self.two_stage:
+            out["enc_outputs"] = {"pred_logits": enc_class,
+                                  "pred_boxes": torch.sigmoid(enc_coord)}
+        if idx is not None:
+            out["proposal_idx"] = idx
         return out
 
 
@@ -202,15 +237,18 @@ def init_params(model: MonoDETR, gen: torch.Generator):
         _xavier_uniform_(seq[0].weight, gen)
     tr = model.depthaware_transformer
     tr.level_embed.normal_(0.0, 1.0, generator=gen)
-    _xavier_uniform_(tr.reference_points.weight, gen)
+    if hasattr(tr, "reference_points"):
+        _xavier_uniform_(tr.reference_points.weight, gen)
     prior_prob = 0.01
-    for i in range(model.dec_layers):
+    for i in range(len(model.class_embed)):
         model.class_embed[i].bias.fill_(-math.log((1 - prior_prob) / prior_prob))
         last = model.bbox_embed[i].layers[-1]
         if model.init_box:
             last.weight.zero_()
+        # box extents start at sigmoid(-2) in head 0 (every head without
+        # box refine); two_stage leaves every head's at 0 (monodetr.py:167-178)
         last.bias.zero_()
-        if i == 0 or not model.with_box_refine:
+        if not model.two_stage and (i == 0 or not model.with_box_refine):
             last.bias[2:] = -2.0
     return model
 

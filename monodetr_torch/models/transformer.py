@@ -1,10 +1,20 @@
 """Depth-aware transformer: visual encoder over the multi-scale tokens and
 the depth-guided decoder with iterative 6-D box refinement
 (monodetr_tpu/models/transformer.py, reference depthaware_transformer.py),
-the standard query configuration, eval and training: in training the
-decoder runs all num_queries * group_num queries with group-wise
-self-attention (transformer.py:161-175) and every dropout of
-transformer.py:104-188 draws from the generator passed down.
+eval and training: in training the decoder runs all num_queries *
+group_num queries with group-wise self-attention (transformer.py:161-175)
+and every dropout of transformer.py:104-188 draws from the generator
+passed down.
+
+The decoder's queries come from one of four configurations
+(transformer.py:283-366): the standard learned queries with references
+from a linear layer; `two_stage`, the top-k of the encoder's tokens scored
+by the extra head set, embedded by pos_trans; `use_dab`, learned content
+and 6-D anchor references; `two_stage_dino`, top-k encoder proposals as
+references with a learned content table.  DAB and DINO recompute each
+decoder layer's query position from the sine embedding of its reference.
+The proposal branches and DAB's references compute in f32 whatever the
+compute dtype, as in JAX (autocast off, explicit casts).
 
 As in the reference, the value of decoder self-attention is the raw `tgt`
 (the reference computes sa_v_proj and then overwrites it,
@@ -12,14 +22,95 @@ depthaware_transformer.py:471 vs :477), so sa_v_proj does not exist here.
 Masks are all-valid at fixed input shapes, so valid ratios are 1.
 """
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.utils import device_constant, inverse_sigmoid
-from .layers import MultiheadAttention, checkpoint_with_gen, dropout, ffn
+from .layers import MLP, MultiheadAttention, checkpoint_with_gen, dropout, ffn
 from .msda_module import MSDeformAttn
+
+QUERY_VARIANTS = ("two_stage", "use_dab", "two_stage_dino")
+
+
+def _sine_dim_t():
+    """10000^(2 floor(i / 2) / 128), i < 128, in f32 as the JAX helpers make it."""
+    dim_t = np.arange(128, dtype=np.float32)
+    return (10000.0 ** (2 * (dim_t // 2) / 128)).astype(np.float32)
+
+
+def _sin_cos(p):
+    """[..., 128] -> sin of the even, cos of the odd entries, interleaved."""
+    return torch.stack([p[..., 0::2].sin(), p[..., 1::2].cos()], -1).flatten(-2)
+
+
+def gen_sineembed_for_position(pos):
+    """Sine embedding of normalised positions [B, Q, d] (d = 2 or 6) ->
+    [B, Q, 128 d], in the order y, x, then l, r, t, b (transformer.py:
+    35-52, reference depthaware_transformer.py:29-65)."""
+    dim_t = device_constant(_sine_dim_t, (), pos.device)
+
+    def embed(coord):
+        return _sin_cos(coord[..., None] * (2 * math.pi) / dim_t)
+
+    order = [1, 0] + list(range(2, pos.shape[-1]))
+    return torch.cat([embed(pos[..., i]) for i in order], -1)
+
+
+def get_proposal_pos_embed(proposals):
+    """[B, Q, 4] unactivated proposals -> [B, Q, 512] sine embedding, the
+    sigmoid inside (transformer.py:55-66, reference :139-152)."""
+    dim_t = device_constant(_sine_dim_t, (), proposals.device)
+    p = torch.sigmoid(proposals) * (2 * math.pi)
+    return _sin_cos(p[..., None] / dim_t).flatten(-2)
+
+
+def encoder_output_proposals(spatial_shapes):
+    """Static per-level box proposals [S, 6] (cx, cy, and 0.05 * 2^level for
+    l, r, t, b) in logit space, +inf where a proposal leaves (0.01, 0.99),
+    and that validity mask [S] (transformer.py:69-86, reference
+    gen_encoder_output_proposals :154-188 with valid ratios 1)."""
+    props = []
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        ys = (np.arange(h, dtype=np.float32) + 0.5) / h
+        xs = (np.arange(w, dtype=np.float32) + 0.5) / w
+        gy, gx = np.meshgrid(ys, xs, indexing="ij")
+        wh = np.full((h * w, 4), 0.05 * (2.0 ** lvl), np.float32)
+        props.append(np.concatenate([gx.reshape(-1, 1), gy.reshape(-1, 1), wh], axis=1))
+    proposals = np.concatenate(props, axis=0)
+    valid = ((proposals > 0.01) & (proposals < 0.99)).all(-1)
+    unact = np.log(proposals / (1 - proposals))
+    unact = np.where(valid[:, None], unact, np.inf).astype(np.float32)
+    return unact, valid
+
+
+def _proposal_logits(spatial_shapes):
+    return encoder_output_proposals(spatial_shapes)[0]
+
+
+def _proposal_valid(spatial_shapes):
+    return encoder_output_proposals(spatial_shapes)[1]
+
+
+def linear_f32(x, layer):
+    return F.linear(x.float(), layer.weight.float(), layer.bias.float())
+
+
+def layer_norm_f32(x, norm):
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps)
+
+
+def mlp_f32(x, mlp):
+    for i, layer in enumerate(mlp.layers):
+        x = linear_f32(x, layer)
+        if i < len(mlp.layers) - 1:
+            x = F.relu(x)
+    return x
 
 
 def encoder_reference_points(spatial_shapes):
@@ -134,9 +225,12 @@ class _Layers(nn.Module):
 
 
 class DepthAwareTransformer(nn.Module):
-    """Encoder + decoder + query/reference machinery.  The per-layer bbox
-    and 3-D size heads are owned by MonoDETR and passed to forward (the
-    reference shares them between refinement and output decoding)."""
+    """Encoder + decoder + query/reference machinery.  The per-layer class,
+    bbox and 3-D size heads are owned by MonoDETR and passed to forward
+    (the reference shares them between refinement and output decoding;
+    `two_stage` scores the encoder's proposals with the last class and
+    bbox head, the extra set).  At most one of `two_stage`, `use_dab`,
+    `two_stage_dino` is set; `num_queries` is also the proposal count."""
 
     def __init__(self, d_model=256, nhead=8, num_encoder_layers=3, num_decoder_layers=3,
                  dim_feedforward=256, num_feature_levels=4, enc_n_points=4, dec_n_points=4,
@@ -144,15 +238,12 @@ class DepthAwareTransformer(nn.Module):
                  msda_impl="gather", msda_window=8, dec_msda_impl="sep", dropout=0.1,
                  group_num=11, num_queries=50, remat=False):
         super().__init__()
-        for flag, on in (("two_stage", two_stage), ("use_dab", use_dab),
-                         ("two_stage_dino", two_stage_dino)):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} is not ported; the standard query path is "
-                    "(ROADMAP.md section A2, the query variants)")
+        if two_stage + use_dab + two_stage_dino > 1:
+            raise ValueError(f"at most one of {', '.join(QUERY_VARIANTS)} may be set")
         self.d_model = d_model
+        self.two_stage, self.use_dab, self.two_stage_dino = two_stage, use_dab, two_stage_dino
+        self.group_num, self.num_queries = group_num, num_queries
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
-        self.reference_points = nn.Linear(d_model, 2)
         self.encoder = _Layers(
             VisualEncoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
                                enc_n_points, msda_impl, msda_window, dropout, remat)
@@ -162,15 +253,40 @@ class DepthAwareTransformer(nn.Module):
                                    dec_n_points, dec_msda_impl, dropout, group_num,
                                    num_queries)
             for _ in range(num_decoder_layers))
+        if two_stage or two_stage_dino:
+            self.enc_output = nn.Linear(d_model, d_model)
+            self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
+        if two_stage:
+            self.pos_trans = nn.Linear(2 * d_model, 2 * d_model)
+            self.pos_trans_norm = nn.LayerNorm(2 * d_model, eps=1e-5)
+        elif two_stage_dino:
+            self.enc_out_class_embed = nn.Linear(d_model, 3)
+            self.enc_out_bbox_embed = MLP(d_model, d_model, 6, 3)
+            self.tgt_embed = nn.Embedding(num_queries * group_num, d_model)
+        elif not use_dab:
+            self.reference_points = nn.Linear(d_model, 2)
+        if use_dab or two_stage_dino:
+            # on the decoder, as the reference names them; the sine
+            # embedding of a 6-D reference is 6 x 128 wide
+            self.decoder.ref_point_head = MLP(6 * 128, d_model, d_model, 2)
+            self.decoder.query_scale = MLP(d_model, d_model, d_model, 2)
 
     def forward(self, srcs, pos_embeds, query_embed, depth_embed, bbox_heads, dim_heads,
-                gen=None):
+                gen=None, class_heads=None, train=False, proposal_idx=None):
         """srcs / pos_embeds: per level [B, h, w, C] (NHWC views);
-        query_embed: [Q, 2C]; depth_embed: [B, S16, C]; gen: the dropout
-        generator in training, else None.
+        query_embed: [Q, 2C] (standard), [Q, C + 6] (use_dab) or None;
+        depth_embed: [B, S16, C]; gen: the dropout generator in training,
+        else None; class_heads: the class heads (read by `two_stage`);
+        train: the training forward (`two_stage_dino` then takes
+        num_queries * group_num proposals); proposal_idx: [B, K] token
+        indices that the proposal variants take instead of their own top-k
+        (None but in a check that holds two runs to the same picks).
 
         Returns (hs [Ldec, B, Q, C], refs_in per layer, inter_dims
-        [Ldec, B, Q, 3] f32)."""
+        [Ldec, B, Q, 3] f32, enc_outputs_class [B, S, 3] and
+        enc_outputs_coord_unact [B, S, 6], both f32 and None unless
+        two_stage, and the proposal indices [B, K], None unless
+        two_stage or two_stage_dino)."""
         B = srcs[0].shape[0]
         C = self.d_model
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
@@ -185,18 +301,67 @@ class DepthAwareTransformer(nn.Module):
         for layer in self.encoder.layers:
             memory = layer(memory, pos_flat, enc_ref, spatial_shapes, gen)
 
-        query_pos, tgt = query_embed.to(dtype).split(C, dim=1)
-        query_pos = query_pos[None].expand(B, -1, -1)
-        tgt = tgt[None].expand(B, -1, -1)
-        with torch.autocast(memory.device.type, enabled=False):  # f32, as in JAX
-            reference_points = torch.sigmoid(nn.functional.linear(
-                query_pos.float(), self.reference_points.weight.float(),
-                self.reference_points.bias.float()))
+        enc_class = enc_coord = idx = None
+        if self.two_stage or self.two_stage_dino:
+            proposals = device_constant(_proposal_logits, (spatial_shapes,), memory.device)
+            valid = device_constant(_proposal_valid, (spatial_shapes,), memory.device)
+            with torch.autocast(memory.device.type, enabled=False):
+                mem = torch.where(valid[None, :, None], memory.float(), 0.0)
+                out_mem = layer_norm_f32(linear_f32(mem, self.enc_output), self.enc_output_norm)
+                if self.two_stage:
+                    # applied twice, as the reference does (:187 and :236-237)
+                    out_mem = layer_norm_f32(linear_f32(out_mem, self.enc_output),
+                                             self.enc_output_norm)
+                else:
+                    enc_coord = mlp_f32(out_mem, self.enc_out_bbox_embed) + proposals
+                    scores = linear_f32(out_mem, self.enc_out_class_embed).max(-1).values
+            if self.two_stage:  # the extra head set, in the compute dtype
+                enc_class = class_heads[-1](out_mem.to(dtype)).float()
+                enc_coord = bbox_heads[-1](out_mem.to(dtype)).float() + proposals
+                scores = enc_class[..., 0]
+            n_q = self.num_queries * (self.group_num if train and self.two_stage_dino else 1)
+            # tiny inputs can have fewer tokens than proposals
+            if proposal_idx is None:
+                idx = scores.topk(min(n_q, scores.shape[1]), dim=1).indices
+            else:
+                idx = proposal_idx
+            ref_unact = torch.gather(enc_coord, 1, idx[..., None].expand(-1, -1, 6)).detach()
+            reference_points = torch.sigmoid(ref_unact)
+            if self.two_stage:
+                # (cx, cy, l + r, t + b) -> (query_pos, tgt)
+                coords4 = torch.cat([ref_unact[..., 0:2],
+                                     ref_unact[..., 2::2] + ref_unact[..., 3::2]], -1)
+                with torch.autocast(memory.device.type, enabled=False):
+                    pos_tgt = layer_norm_f32(
+                        linear_f32(get_proposal_pos_embed(coords4), self.pos_trans),
+                        self.pos_trans_norm)
+                query_pos, tgt = pos_tgt.to(dtype).split(C, dim=-1)
+            else:
+                enc_coord = None  # DINO returns no encoder outputs
+                tgt = self.tgt_embed.weight[:idx.shape[1]].to(dtype)[None].expand(B, -1, -1)
+        elif self.use_dab:
+            with torch.autocast(memory.device.type, enabled=False):
+                anchors = query_embed.float()
+                reference_points = torch.sigmoid(anchors[None, :, C:]).expand(B, -1, -1)
+            tgt = anchors[None, :, :C].expand(B, -1, -1).to(dtype)
+        else:
+            query_pos, tgt = query_embed.to(dtype).split(C, dim=1)
+            query_pos = query_pos[None].expand(B, -1, -1)
+            tgt = tgt[None].expand(B, -1, -1)
+            with torch.autocast(memory.device.type, enabled=False):  # f32, as in JAX
+                reference_points = torch.sigmoid(linear_f32(query_pos, self.reference_points))
+        per_layer_query_pos = self.use_dab or self.two_stage_dino
 
         hs, refs_in, dims = [], [], []
         for lid, layer in enumerate(self.decoder.layers):
             ref_dim = reference_points.shape[-1]
             ref_input = reference_points[:, :, None, :].expand(-1, -1, len(spatial_shapes), ref_dim)
+            if per_layer_query_pos:
+                # the sine embedding of the current reference (:384-408)
+                query_pos = self.decoder.ref_point_head(
+                    gen_sineembed_for_position(reference_points).to(dtype))
+                if lid != 0:
+                    query_pos = self.decoder.query_scale(tgt) * query_pos
             tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, depth_embed, gen)
             hs.append(tgt)
             refs_in.append(reference_points)
@@ -209,4 +374,4 @@ class DepthAwareTransformer(nn.Module):
                 new_ref = torch.cat([tmp[..., :2] + inverse_sigmoid(reference_points),
                                      tmp[..., 2:]], -1)
             reference_points = torch.sigmoid(new_ref).detach()
-        return torch.stack(hs), refs_in, torch.stack(dims)
+        return torch.stack(hs), refs_in, torch.stack(dims), enc_class, enc_coord, idx

@@ -3,6 +3,7 @@
     python -m monodetr_torch.profile_train [--batch 16] [--steps 3] [--out outputs/profile]
         [--msda-impl fused] [--dec-msda-impl sep]
         [--backbone resnet50] [--height 384] [--width 1280] [--remat 0]
+        [--query standard]
 
 The shipped model (configs/monodetr.yaml, full width and depth, seeded
 random weights; the two impl options switch its deformable attention to
@@ -11,7 +12,9 @@ targets in bf16 compute with f32 parameters and dropout 0.1
 (train/synthetic.py).  --backbone, --height, --width and --remat (0, 1,
 backbone, encoder or all) are bench.py's BENCH_BACKBONE, BENCH_H, BENCH_W
 and BENCH_REMAT: the stress configuration is `--backbone resnet101
---height 768 --width 2560 --batch 2 --remat 1`.  After 3
+--height 768 --width 2560 --batch 2 --remat 1`.  --query switches the
+decoder's queries to a query variant (two_stage, use_dab, two_stage_dino;
+two_stage trains at group_num 1).  After 3
 warm-up steps, 30 steps are timed one by one by CUDA events without the
 profiler (steps spread by tens of ms, so one reads their median), then
 `--steps` steps run under torch.profiler.
@@ -35,6 +38,7 @@ import torch
 from .config import MONODETR_MODEL
 from .models.criterion import SetCriterion
 from .models.monodetr import build_monodetr, compute_dtype
+from .models.transformer import QUERY_VARIANTS
 from .train.optimizer import build_optimizer
 from .train.synthetic import SyntheticLoader
 from .train.train_step import batch_to_device, make_train_step
@@ -98,6 +102,8 @@ def main(argv=None):
     parser.add_argument("--height", type=int, default=384)
     parser.add_argument("--width", type=int, default=1280)
     parser.add_argument("--remat", default="0", help="0, 1, backbone, encoder or all")
+    parser.add_argument("--query", default="standard",
+                        choices=("standard",) + QUERY_VARIANTS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train: needs a CUDA card")
@@ -105,6 +111,8 @@ def main(argv=None):
     remat = {"0": False, "1": True}.get(args.remat, args.remat)
     cfg = dict(MONODETR_MODEL, msda_impl=args.msda_impl, dec_msda_impl=args.dec_msda_impl,
                backbone=args.backbone, remat=remat)
+    if args.query != "standard":
+        cfg.update({args.query: True}, group_num=1 if args.query == "two_stage" else 11)
     model = build_monodetr(cfg, seed=444).cuda()
     opt = build_optimizer({"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4}, model)
     step = make_train_step(model, SetCriterion(cfg), opt, compute_dtype(cfg))
@@ -145,7 +153,8 @@ def main(argv=None):
     busy = sum(by_group.values())
     n = args.steps
     print(f"card: {torch.cuda.get_device_name(0)}; {args.backbone}, batch {args.batch}, "
-          f"{args.height}x{args.width}, bf16 compute, remat {remat!r}, msda_impl "
+          f"{args.height}x{args.width}, bf16 compute, remat {remat!r}, queries {args.query}, "
+          f"msda_impl "
           f"{args.msda_impl}, dec_msda_impl {args.dec_msda_impl}; peak memory of the "
           f"unprofiled steps {peak_gib:.2f} GiB")
     med = float(np.median(step_ms))

@@ -37,10 +37,18 @@ def _convert_state_dict():
     return mod.convert_state_dict
 
 
-def _depths(model):
+def _layout(model):
+    """convert_state_dict's arguments for the model: depths and the query
+    configuration."""
     tr = model.depthaware_transformer
     return dict(backbone=model.backbone[0].body.name, enc_layers=len(tr.encoder.layers),
-                dec_layers=len(tr.decoder.layers))
+                dec_layers=len(tr.decoder.layers), two_stage=tr.two_stage,
+                use_dab=tr.use_dab, two_stage_dino=tr.two_stage_dino)
+
+
+# heads that the extra set of two_stage lacks in the JAX tree (flax makes
+# the parameters of a called head only; the proposals read class and bbox)
+UNCALLED_EXTRA_HEADS = ("dim_embed_3d", "angle_embed", "depth_embed")
 
 
 def _frozen_bn_names(model):
@@ -61,7 +69,18 @@ def to_jax_tree(model, values=None):
                 sd[k] = np.full_like(v, 1.0 - BN_EPS)  # scale = 0 / sqrt(1)
             else:
                 sd[k] = np.zeros_like(v)
-    tree = _convert_state_dict()(sd, **_depths(model))
+    layout = _layout(model)
+    extra = layout["dec_layers"]
+    if layout["two_stage"]:
+        # convert_state_dict clones all five heads for the extra set, as
+        # the reference does: give it head 0's leaves there, then drop them
+        sd = dict(sd, **{f"{name}.{extra}{k[len(name) + 2:]}": v
+                         for name in UNCALLED_EXTRA_HEADS
+                         for k, v in sd.items() if k.startswith(name + ".0.")})
+    tree = _convert_state_dict()(sd, **layout)
+    if layout["two_stage"]:
+        for name in UNCALLED_EXTRA_HEADS:
+            del tree["params"][f"{name}_{extra}"]
     if LEARNED_POSITION[0] in sd:  # convert_state_dict has no entry for these
         tree["params"]["position_embedding"] = {
             name: sd[key] for name, key in zip(("row_embed", "col_embed"), LEARNED_POSITION)}

@@ -8,7 +8,11 @@ therefore the MSDA and attention kernels receive bf16 tensors, while the
 places the JAX model keeps in f32 stay f32.  The step returns one stacked
 loss vector in the JAX package's key order (sorted loss names, then
 `loss_detr`, the weighted total), so a caller reads the losses from the
-card with one copy.
+card with one copy.  With data parallel (`dp`, parallel/ddp.py) the step
+is the JAX SPMD step's (monodetr_tpu/parallel/mesh.py:53-92): each rank
+runs its slice of the global batch, its losses are its shares of the
+global batch's (models/criterion.py), the gradients and the loss vector are
+summed over ranks, and every rank takes the same optimizer step.
 """
 
 import numpy as np
@@ -28,12 +32,12 @@ def batch_to_device(batch, device):
     return out
 
 
-def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32):
+def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32, dp=None):
     """Returns train_step(batch, lr, gen) -> LossVector.
 
-    batch: tensors on the model's device (batch_to_device); lr: a float;
-    gen: the torch.Generator on that device that every dropout draws from
-    (None: no dropout)."""
+    batch: tensors on the model's device (batch_to_device; with `dp` this
+    rank's slice); lr: a float; gen: the torch.Generator on that device
+    that every dropout draws from (None: no dropout)."""
     loss_keys = []
     autocast = compute_dtype != torch.float32
 
@@ -43,16 +47,18 @@ def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32):
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
             out = model(batch["images"], batch["calibs"], batch["img_sizes"], train=True,
                         gen=gen)
-        losses = criterion(out, {k: batch[k] for k in TARGET_KEYS}, train=True)
+        losses = criterion(out, {k: batch[k] for k in TARGET_KEYS}, train=True, dp=dp)
         total = criterion.total(losses)
         optimizer.zero_grad()
         total.backward()
+        if dp is not None:
+            dp.sum_grads(optimizer.params)
         optimizer.step(lr)
         keys = sorted(losses)
         if not loss_keys:
             loss_keys.extend(keys + ["loss_detr"])
         stacked = torch.stack([losses[k].detach().float() for k in keys] + [total.detach()])
-        return LossVector(tuple(loss_keys), stacked)
+        return LossVector(tuple(loss_keys), stacked if dp is None else dp.sum(stacked))
 
     return train_step
 

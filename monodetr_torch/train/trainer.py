@@ -3,7 +3,9 @@ lib/helpers/trainer_helper.py): the epoch loop with a per-epoch numpy
 reseed (:74), pretrain merge and resume (:44-63), checkpoint saves (latest
 or per epoch, and the best by Car-moderate AP3D_R40, :86-108) with the
 in-loop Tester, a log line every 30 batches with img/s, and an optional
-torch.profiler trace of a few steps.
+torch.profiler trace of a few steps.  With data parallel (`dp`,
+parallel/ddp.py) every rank runs the loop on its slice of each global
+batch, and only rank 0 writes checkpoints and evaluates.
 """
 
 import os
@@ -17,15 +19,18 @@ from .checkpoint import (get_checkpoint_state, load_checkpoint, load_model_state
 from .optimizer import build_optimizer
 from .scheduler import lr_at_epoch
 from .train_step import batch_to_device, make_train_step
+from ..utils.misc import is_main_process
 
 
 class Trainer:
     def __init__(self, cfg, model, criterion, train_loader, lr_cfg, optim_cfg,
                  logger, model_name, tester=None, device="cuda",
-                 compute_dtype=torch.float32, seed=444):
+                 compute_dtype=torch.float32, seed=444, dp=None):
         """`model`: a monodetr_torch MonoDETR with f32 parameters on
         `device`; `compute_dtype`: the forward's dtype (bf16 runs under
-        autocast); `seed`: of the dropout generator."""
+        autocast); `seed`: of the dropout generator (seed + rank with
+        `dp`); `dp`: None, or the run's parallel/ddp.py:DataParallel, with
+        `train_loader` loading this rank's slices."""
         self.cfg = cfg
         self.model = model
         self.train_loader = train_loader
@@ -39,7 +44,9 @@ class Trainer:
         self.tester = tester
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.dp = dp
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            seed + (dp.rank if dp else 0))
 
         if cfg.get("pretrain_model"):
             if not os.path.exists(cfg["pretrain_model"]):
@@ -49,7 +56,7 @@ class Trainer:
             load_model_state(model, merge_params(to_jax_tree(model), state["model_state"]))
 
         self.optimizer = build_optimizer(optim_cfg, model)
-        self.train_step = make_train_step(model, criterion, self.optimizer, compute_dtype)
+        self.train_step = make_train_step(model, criterion, self.optimizer, compute_dtype, dp)
 
         if cfg.get("resume_model"):
             resume_path = os.path.join(self.output_dir, "checkpoint.pth")
@@ -63,6 +70,8 @@ class Trainer:
             self.best_epoch = state["best_epoch"]
             self.logger.info("Loading Checkpoint... Best Result:{}, Best Epoch:{}".format(
                 self.best_result, self.best_epoch))
+        if dp is not None:
+            dp.broadcast_(model)
 
     def train(self):
         for epoch in range(self.epoch, self.cfg["max_epoch"]):
@@ -71,6 +80,10 @@ class Trainer:
             self.epoch += 1
             if (self.epoch % self.cfg.get("save_frequency", 1)) == 0:
                 self._save_and_eval_epoch()
+        # rank 0 only: the other ranks skip _save_and_eval_epoch, so
+        # best_result and best_epoch mean something on rank 0 alone, and
+        # nothing may branch or start a collective on them
+        # (monodetr_tpu/train/trainer.py:108-116)
         self.logger.info("Best Result:{}, epoch:{}".format(self.best_result, self.best_epoch))
 
     def _state(self):
@@ -78,6 +91,10 @@ class Trainer:
                                     self.best_result, self.best_epoch)
 
     def _save_and_eval_epoch(self):
+        """Checkpoint and in-loop evaluation, on rank 0 only; the other
+        ranks go on and wait in the next step's first collective."""
+        if not is_main_process():
+            return
         os.makedirs(self.output_dir, exist_ok=True)
         name = ("checkpoint_epoch_%d" % self.epoch if self.cfg.get("save_all", False)
                 else "checkpoint")
@@ -100,6 +117,10 @@ class Trainer:
                          max_epoch=int(self.cfg.get("max_epoch", 195)))
         t0 = time.time()
         n_imgs = 0
+        # global images: this rank's count times the world, since every
+        # rank loads an equal slice of each global batch (but an epoch's
+        # last, padded batch, whose valid rows may fall unequally)
+        world = self.dp.world if self.dp is not None else 1
         # cfg profile_steps: N -> trace batches [2, 2 + N) of the first
         # epoch to <output>/profile
         profile_steps = int(self.cfg.get("profile_steps", 0)) if epoch == 0 else 0
@@ -120,14 +141,14 @@ class Trainer:
                 self.logger.info("epoch %d batch %d | loss_detr %.2f | %s | %.1f img/s" % (
                     epoch, batch_idx, values.get("loss_detr", 0.0),
                     ", ".join(f"{k} {v:.2f}" for k, v in sorted(main.items())),
-                    n_imgs / dt if dt > 0 else 0))
+                    world * n_imgs / dt if dt > 0 else 0))
         if prof is not None:
             self._stop_profile(prof)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.time() - t0
         self.logger.info("epoch %d done in %.1fs (%.2f img/s)" % (
-            epoch, dt, n_imgs / max(dt, 1e-9)))
+            epoch, dt, world * n_imgs / max(dt, 1e-9)))
 
     def _start_profile(self):
         acts = [torch.profiler.ProfilerActivity.CPU]

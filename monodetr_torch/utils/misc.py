@@ -1,7 +1,7 @@
-"""Logging + seeding (reference lib/helpers/utils_helper.py parity).
-
-A copy of the JAX package's utils/misc.py without its multi-host write
-gate, which asks JAX for the process index."""
+"""Logging, seeding and the write gate of data parallel (reference
+lib/helpers/utils_helper.py parity; monodetr_tpu/utils/misc.py with
+torch.distributed's rank where the JAX package asks for its process
+index)."""
 
 import logging
 import random
@@ -21,6 +21,16 @@ def create_logger(log_file, rank=0):
     console.setFormatter(logging.Formatter(log_format))
     logging.getLogger(__name__).addHandler(console)
     return logging.getLogger(__name__)
+
+
+def is_main_process():
+    """The rank that writes checkpoints and result txts and evaluates
+    (reference is_main_process / save_on_master, utils/misc.py:381-407):
+    rank 0 of an initialised torch.distributed process group, or True
+    when there is none."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def set_random_seed(seed):

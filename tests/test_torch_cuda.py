@@ -19,7 +19,9 @@ Kernels 2 and 7 are also held to their plain version at 32 samples per head,
 at batches of 1 and 3, on and beyond a level's border, at positions no
 int32 holds, with zero weights, with every sample in one pixel, and on a
 level of more tiles than kernel 7's binning sorts at a time; a pyramid whose
-tokens pass 32-bit offsets is refused.
+tokens pass 32-bit offsets is refused.  The query variants' forwards run
+the kernels as the standard model's does, and a data-parallel step of two
+gloo ranks sharing the card equals one process's step on their images.
 """
 
 import numpy as np
@@ -173,6 +175,52 @@ def test_model_forward_through_optin_kernels(cuda, enc, dec):
     assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1]
     for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("variant", ["two_stage", "use_dab", "two_stage_dino"])
+def test_query_variant_forward_through_kernels(cuda, variant):
+    """Each query variant (2+2 layers, 128x256, B=2, f32) through the
+    kernels against the plain versions, two_stage's encoder outputs too,
+    and one launch of each MSDA kernel per layer."""
+    kw = {"two_stage": dict(two_stage=True, group_num=1), "use_dab": dict(use_dab=True),
+          "two_stage_dino": dict(two_stage_dino=True)}[variant]
+    model = build_monodetr(dict(msda_impl="fused", msda_window=6, dec_msda_impl="sep",
+                                enc_layers=2, dec_layers=2, **kw), seed=0).to(cuda)
+    rng = np.random.RandomState(2)
+    images = torch.from_numpy(rng.randn(2, 128, 256, 3).astype(np.float32)).to(cuda)
+    calibs = torch.tensor([[700.0, 0, 600, 45], [0, 700, 170, 0], [0, 0, 1, 0]],
+                          device=cuda).expand(2, 3, 4)
+    sizes = torch.tensor([[1242.0, 375.0]], device=cuda).expand(2, 2)
+    counters = (ms_deform_attn_enc_fused, ms_deform_attn_sep)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        got = model(images, calibs, sizes)
+        want = model.use_plain_ops(True)(images, calibs, sizes)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2]
+    assert got["pred_logits"].shape == (2, 50, 3)
+    for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
+    assert ("enc_outputs" in got) == (variant == "two_stage")
+    for k in got.get("enc_outputs", {}):
+        torch.testing.assert_close(got["enc_outputs"][k], want["enc_outputs"][k], rtol=1e-3,
+                                   atol=1e-3)
+
+
+def test_two_gloo_ranks_on_the_card_equal_one_process(cuda):
+    """parallel/dryrun.py:compare_with_one_process on cuda:0: two gloo
+    ranks with 2 images each (128x256, 2+2 layers, f32, no dropout) against
+    one process on the 4, as tests/test_torch_parallel.py holds it on the
+    CPU (detections to 1e-4: cuDNN picks its algorithms by batch size)."""
+    from monodetr_torch.parallel.dryrun import compare_with_one_process
+
+    r = compare_with_one_process(2, "cuda:0", "gloo", 128, 256, 2, 2, 2, timeout=600)
+    assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+    assert r["loss_err"] <= 1e-5 and r["grad_err"] <= 1.0 and r["n_grads"] > 100
+    assert r["param_err"] <= 1e-5 and r["moved_share"] <= 1e-3
+    assert r["n_equal"] == 2
+    assert r["dets_shape"] == [4, 50, 37] and r["dets_err"] <= 1e-4
+    assert r["launches"]["msda_enc_fused"] == 2 and r["launches"]["msda_sep_bwd"] == 2
+    assert r["launches"]["lap"] == 1
 
 
 def window_case(shapes, B, dtype, seed, window=6):

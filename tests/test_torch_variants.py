@@ -16,9 +16,9 @@ and `position_embedding: learned` (alias `v3`).
 - the state_dict made by convert.params_from_jax loads into the port and
   train/checkpoint.py:to_jax_tree gives the tree back (ResNet-101's 23
   blocks of layer3, the learned tables under position_embedding);
-- the refusals: the query variants raise NotImplementedError naming
-  ROADMAP.md section A2, an unknown backbone or position embedding
-  ValueError.
+- the refusals: an unknown backbone or position embedding raises
+  ValueError.  (The query variants are held by
+  tests/test_torch_query_variants.py.)
 """
 
 import sys
@@ -156,12 +156,6 @@ def test_checkpoint_tree_round_trip(weights):
             assert torch.equal(back[k], v), k
     np.testing.assert_array_equal(tree["params"]["position_embedding"]["row_embed"],
                                   model.backbone[1].row_embed.weight.detach().numpy())
-
-
-@pytest.mark.parametrize("flag", ["two_stage", "use_dab", "two_stage_dino"])
-def test_query_variants_are_refused_by_name(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section A2"):
-        build_monodetr(dict(CFG, backbone="resnet50", enc_layers=1, dec_layers=1, **{flag: True}))
 
 
 @pytest.mark.parametrize("key,value", [("backbone", "resnet34"),
