@@ -1,6 +1,6 @@
 """Smoke run of monodetr_torch on one CUDA card.
 
-    python3 chip_smoke.py [--decoder-msda-only | --lap-only]
+    python3 chip_smoke.py [--decoder-msda-only | --lap-only | --learning-loop-only]
 
 Phases, one line each (or a few), and any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -80,9 +80,22 @@ Phases, one line each (or a few), and any failure exits non-zero:
      compare_with_one_process: losses, gradients, every parameter after
      AdamW against the difference its two gradients imply, identical on
      both ranks, and the parallel eval step's gathered detections).  NCCL refuses two ranks on one card, so NCCL is
-     exercised at world size 1 only.
+     exercised at world size 1 only;
+ 11. the handoff (data/device_prefetch.py): a synthetic KITTI split of 32
+     images (tests/synthetic_kitti.py) through the port's loader and the
+     prefetcher into 6 default bf16 train steps at batch 16, with
+     torch.cuda.set_sync_debug_mode("error") around the loop (any
+     synchronizing call raises); the same loop through the blocking
+     pageable copy must raise under that mode; every prefetched batch
+     bit-equal to the blocking copy of the same numpy batch; the trainer's
+     img/s over one epoch through each handoff (smoke readings);
+ 12. the CLI (tools/train_val_torch.py) on 8 synthetic images: 2 epochs of
+     training with its evaluations, then -e, each in a process of its own
+     that must exit 0, write the tester's rows and report its launches;
+ 13. tools/validate_clamp_torch.py, short: fused G=6 against gather, 10
+     bf16 steps at batch 2, 384x1280, max relative loss difference <= 0.1.
 The kernel report (JSON) sums each kernel's launches over the main-path
-runs of phases 5-10 and fails if one of them is 0; it is the second-to-last
+runs of phases 5-13 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
 least time the card could take for the same work at the timed shape
 (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s and its
@@ -98,8 +111,9 @@ backward at 0), which gives dropout's share of its time.  The last line is
 {"ok": true, "device": {...}}.
 
 With --decoder-msda-only the run is phases 1 and 2 and what phases 3 and 4
-do for kernels 2 and 7, and with --lap-only phases 1 and 2 and the LAP
-part of phase 4; neither prints the report or the last line.  Each is a
+do for kernels 2 and 7, with --lap-only phases 1 and 2 and the LAP
+part of phase 4, and with --learning-loop-only phases 1, 2 and 11-13;
+none prints the report or the last line.  Each is a
 minute or less for those kernels' times, e.g. of two checkouts one after
 the other on one card (the wrappers they call are `ms_deform_attn_sep`,
 `ms_deform_attn_dense_fused` and their `_bwd`, and `lap_solve`; --lap-only
@@ -1411,15 +1425,283 @@ def phase_dp_gloo():
     return r["launches"]
 
 
+HANDOFF_IMAGES, HANDOFF_STEPS = 32, 6
+
+
+def blocking_to_device(batch):
+    """The handoff before data/device_prefetch.py: each array copied from
+    pageable host memory by a copy that waits for the card."""
+    from monodetr_torch.train.train_step import BATCH_KEYS
+
+    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+        "cuda", torch.bool if k == "mask" else None) for k in BATCH_KEYS}
+
+
+class BlockingHandoff:
+    """DevicePrefetcher's interface over blocking_to_device: the trainer's
+    loop as it was before the prefetcher."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+
+    def __iter__(self):
+        for batch, infos in self.loader:
+            yield blocking_to_device(batch), batch, infos
+
+
+def synthetic_kitti(root, n_train, n_val=2, seed=5):
+    """tests/synthetic_kitti.py's KITTI tree (KITTI-size PNGs, 1242x375)
+    under `root`, made once.  Imported by file: a `tests` package installed
+    elsewhere would shadow the repo's."""
+    sys.path.insert(1, os.path.join(REPO, "tests"))
+    from synthetic_kitti import make_synthetic_kitti
+
+    if not os.path.exists(os.path.join(root, "ImageSets", "train.txt")):
+        make_synthetic_kitti(root, n_train=n_train, n_val=n_val, seed=seed, max_cars=6)
+    return root
+
+
+def phase_handoff():
+    """Phase 11: the loader's batches through data/device_prefetch.py into
+    the default bf16 train step.  A synthetic KITTI split of 32 images (the
+    shipped dataset settings, 384x1280, the port's loader with 4 threads);
+    6 steps at batch 16 with torch.cuda.set_sync_debug_mode("error") around
+    the prefetch-and-step loop, so that any synchronizing call raises (the
+    losses are read after the mode is reset); the same loop through the
+    blocking copy raises under the same mode (the check can fail); every
+    prefetched device batch equal, bit for bit, to the blocking copy of the
+    same numpy batch; then the trainer's img/s over one epoch of the split
+    through each handoff (smoke readings).  Returns the 6 steps' launch
+    counts."""
+    import logging
+
+    from monodetr_torch.config import MONODETR_MODEL, load_config
+    from monodetr_torch.data.device_prefetch import DevicePrefetcher
+    from monodetr_torch.data.kitti_dataset import KITTIDataset
+    from monodetr_torch.data.loader import DataLoader
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
+    from monodetr_torch.train import trainer as trainer_module
+    from monodetr_torch.train.optimizer import build_optimizer
+    from monodetr_torch.train.train_step import BATCH_KEYS, make_train_step
+
+    t0 = time.time()
+    root = synthetic_kitti(os.path.join(REPO, "tmp", "chip_smoke_kitti"), HANDOFF_IMAGES)
+    cfg = load_config(os.path.join(REPO, "configs", "monodetr.yaml"))
+    ds = KITTIDataset("train", dict(cfg["dataset"], root_dir=root))
+    loader = DataLoader(ds, batch_size=16, shuffle=True, num_workers=4)
+    model_cfg = dict(MONODETR_MODEL)
+    model = build_monodetr(model_cfg, seed=444).cuda()
+    opt = build_optimizer({"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4}, model)
+    step = make_train_step(model, SetCriterion(model_cfg), opt, compute_dtype(model_cfg))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # the negative control, also the warm-up: the blocking copy raises
+    torch.cuda.set_sync_debug_mode("error")
+    batches = iter(loader)
+    try:
+        for batch, _ in batches:
+            step(blocking_to_device(batch), 2e-4, gen)
+        blocking_error = None
+    except RuntimeError as e:
+        blocking_error = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        batches.close()
+    step(blocking_to_device(next(iter(loader))[0]), 2e-4, gen)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    losses, seen = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for epoch in range(HANDOFF_STEPS * 16 // HANDOFF_IMAGES):
+            loader.set_epoch(epoch)
+            for on_card, batch, _ in DevicePrefetcher(loader, "cuda"):
+                losses.append(step(on_card, 2e-4, gen))
+                seen.append((on_card, batch))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = main_path_counts(DEFAULT_PER_STEP, HANDOFF_STEPS, "handoff")
+    totals = [float(lv.as_dict()["loss_detr"]) for lv in losses]
+
+    def same(on_card, batch):
+        blocking = blocking_to_device(batch)
+        return all(on_card[k].dtype == blocking[k].dtype and torch.equal(on_card[k], blocking[k])
+                   for k in BATCH_KEYS)
+
+    equal = all(same(on_card, batch) for on_card, batch in seen)
+    ok = (len(losses) == HANDOFF_STEPS and np.isfinite(totals).all() and equal
+          and blocking_error is not None and "synchroniz" in blocking_error)
+    log(f"handoff: {HANDOFF_STEPS} bf16 train steps at batch 16 on {len(ds)} synthetic KITTI "
+        f"images through the prefetcher under sync debug mode 'error': loss_detr "
+        + " ".join(f"{t:.3f}" for t in totals)
+        + f"; the blocking copy under the same mode raised: {blocking_error!r}; prefetched "
+        f"batches bit-equal to the blocking copies: {equal}; launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("handoff: a sync on the prefetched path, no raise on the blocking "
+                           "path, or a prefetched batch that differs")
+    del model, opt, step, seen, losses
+
+    logger = logging.getLogger("chip_smoke")
+    rates = {}
+    for name, handoff in (("prefetched", DevicePrefetcher), ("blocking", BlockingHandoff)):
+        model = build_monodetr(model_cfg, seed=444).cuda()
+        trainer_module.DevicePrefetcher = handoff
+        try:
+            trainer = trainer_module.Trainer(
+                {"max_epoch": 195}, model, SetCriterion(model_cfg), loader,
+                {"warmup": False}, {"type": "adamw", "lr": 2e-4}, logger, "chip_smoke",
+                device="cuda", compute_dtype=compute_dtype(model_cfg), seed=444)
+            trainer.train_one_epoch(0)  # warm-up
+            t1 = time.time()
+            trainer.train_one_epoch(1)  # ends in a synchronize
+            rates[name] = len(ds) / (time.time() - t1)
+        finally:
+            trainer_module.DevicePrefetcher = DevicePrefetcher
+        del model, trainer
+    torch.cuda.empty_cache()
+    log(f"handoff: Trainer.train_one_epoch over the {len(ds)} images, batch 16, after a warm-up "
+        f"epoch (host clock, smoke readings): prefetched {rates['prefetched']:.1f} img/s, "
+        f"blocking {rates['blocking']:.1f} img/s; phase 11 in {time.time() - t0:.1f} s")
+    return counts
+
+
+LAUNCH_REPORT = (
+    "import json, runpy, sys; sys.path.insert(0, %r); sys.argv = [%r] + %r; "
+    "runpy.run_path(%r, run_name='__main__'); "
+    "import chip_smoke; print('launches ' + json.dumps(chip_smoke.read_launches()))")
+
+
+def run_counted(tool, args, cwd, timeout):
+    """`python tool args` in a process of its own, from `cwd`, and that
+    process's launches of the kernels (KERNELS' wrappers): (exit code,
+    launch counts or None, output tail)."""
+    code = LAUNCH_REPORT % (REPO, tool, list(args), tool)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True,
+                          text=True, timeout=timeout)
+    counts = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("launches "):
+            counts = {k: v for k, v in json.loads(line[len("launches "):]).items() if v}
+    return proc.returncode, counts, (proc.stdout + proc.stderr)[-2000:]
+
+
+def phase_cli():
+    """Phase 12: the port's CLI (tools/train_val_torch.py) on the card: 2
+    epochs on 8 synthetic KITTI images (tools/overfit_synthetic_torch.py's
+    config: val == train, batch 8, one epoch a step, the tester at epoch 2
+    and after training; threshold 0, so every image gets its 50 rows), then
+    `-e`; each must exit 0 and write one txt of 50 rows per image.  Each
+    run is a process of its own; its launches are counted there (2 train
+    steps and 2 eval batches; 1 eval batch) and returned."""
+    import shutil
+
+    import yaml
+
+    sys.path.insert(1, os.path.join(REPO, "tools"))
+    from overfit_synthetic_torch import make_config
+
+    t0 = time.time()
+    workdir = os.path.join(REPO, "tmp", "chip_smoke_cli")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    root = synthetic_kitti(os.path.join(workdir, "kitti"), 8, seed=3)
+    with open(os.path.join(root, "ImageSets", "train.txt")) as f:
+        ids = f.read()
+    with open(os.path.join(root, "ImageSets", "val.txt"), "w") as f:
+        f.write(ids)
+    cfg_path = make_config(workdir, root, 8, 2)
+    with open(cfg_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["tester"]["threshold"] = 0.0
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    tool = os.path.join(REPO, "tools", "train_val_torch.py")
+    per_forward = {"msda_enc_fused": 3, "msda_sep": 3, "attention_fwd": 1}
+    want = {"train": {k: 2 * DEFAULT_PER_STEP.get(k, 0) + 2 * per_forward.get(k, 0)
+                      for k in DEFAULT_PER_STEP},
+            "-e": per_forward}
+    totals = dict.fromkeys(KERNELS, 0)
+    data = os.path.join(workdir, "outputs", "overfit", "outputs", "data")
+    for name, extra in (("train", []), ("-e", ["-e"])):
+        shutil.rmtree(data, ignore_errors=True)
+        rc, counts, tail = run_counted(tool, ["--config", cfg_path, "--device", "cuda"] + extra,
+                                       workdir, 600)
+        txts = sorted(os.listdir(data)) if os.path.isdir(data) else []
+        rows = [len(open(os.path.join(data, t)).read().splitlines()) for t in txts]
+        ok = rc == 0 and counts == want[name] and len(txts) == 8 and set(rows) == {50}
+        log(f"cli {name}: tools/train_val_torch.py exit {rc}, {len(txts)} txts of "
+            f"{sorted(set(rows))} rows, launches {counts} (want {want[name]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"cli {name}: {tail}")
+        for k, v in counts.items():
+            totals[k] += v
+    log(f"phase 12 (CLI) in {time.time() - t0:.1f} s")
+    return {k: v for k, v in totals.items() if v}
+
+
+CLAMP_STEPS, CLAMP_BATCH, CLAMP_MAX_REL = 10, 2, 0.1
+
+
+def phase_clamp():
+    """Phase 13: tools/validate_clamp_torch.py, short: fused at G=6 against
+    gather, 10 bf16 steps at batch 2, 384x1280, from identical parameters
+    and dropout draws; both loss trajectories finite and their largest
+    step-wise relative difference within CLAMP_MAX_REL.  Returns the launch
+    counts (gather: kernels 2-4; fused: 1-4)."""
+    sys.path.insert(1, os.path.join(REPO, "tools"))
+    from validate_clamp_torch import run
+
+    t0 = time.time()
+    reset_launches()
+    r = run(steps=CLAMP_STEPS, batch=CLAMP_BATCH, impl="fused", window=6, device="cuda",
+            decode=False)
+    torch.cuda.synchronize()
+    gather_step = {k: v for k, v in DEFAULT_PER_STEP.items() if not k.startswith("msda_enc")}
+    counts = {k: v for k, v in read_launches().items() if v}
+    want = {k: CLAMP_STEPS * (DEFAULT_PER_STEP[k] + gather_step.get(k, 0))
+            for k in DEFAULT_PER_STEP}
+    finite = np.isfinite(r["traj_gather"] + r["traj_fused"]).all()
+    ok = finite and r["max_rel_diff"] <= CLAMP_MAX_REL and counts == want
+    log(f"clamp: validate_clamp_torch fused G=6 vs gather, {CLAMP_STEPS} bf16 steps batch "
+        f"{CLAMP_BATCH} 384x1280: loss_detr gather "
+        + " ".join(f"{v:.3f}" for v in r["traj_gather"])
+        + "; fused " + " ".join(f"{v:.3f}" for v in r["traj_fused"])
+        + f"; max rel diff {r['max_rel_diff']:.4f} (<= {CLAMP_MAX_REL}), final "
+        f"{r['final_rel_diff']:.4f}; launches {counts} (want {want}); {time.time() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("clamp: trajectories not finite, apart, or launches wrong")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_learning_loop(add):
+    """Phases 11-13; `add` takes each one's launch counts."""
+    t0 = time.time()
+    add(phase_handoff())
+    add(phase_cli())
+    add(phase_clamp())
+    log(f"phases 11-13 (handoff, CLI, clamp) in {time.time() - t0:.1f} s")
+
+
 def main(argv):
-    if argv not in ([], ["--decoder-msda-only"], ["--lap-only"]):
-        sys.exit(f"usage: python3 chip_smoke.py [--decoder-msda-only | --lap-only], not {argv}")
+    if argv not in ([], ["--decoder-msda-only"], ["--lap-only"], ["--learning-loop-only"]):
+        sys.exit("usage: python3 chip_smoke.py [--decoder-msda-only | --lap-only | "
+                 f"--learning-loop-only], not {argv}")
     phase_environment()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv == ["--lap-only"]:
         phase_lap()
+        return
+    if argv == ["--learning-loop-only"]:
+        phase_learning_loop(lambda counts: None)
         return
     if argv:
         phase_forward_kernels([n for n in FORWARD_KERNELS if n in LOC_KERNELS])
@@ -1477,6 +1759,7 @@ def main(argv):
     add(phase_dp_nccl())
     add(phase_dp_gloo())
     log(f"phase 10 (data parallel) in {time.time() - t0:.1f} s")
+    phase_learning_loop(add)
     idle = [k for k, v in totals.items() if v == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")

@@ -19,9 +19,13 @@ import numpy as np
 import torch
 
 from ..convert import params_from_jax
+from ..data.device_prefetch import DevicePrefetcher
 from ..data.kitti_utils import Calibration
+from ..train.train_step import batch_to_device, make_eval_step
 from ..utils.misc import is_main_process
-from .decode import decode_detections, extract_dets_from_outputs, save_results
+from .decode import decode_detections, save_results
+
+EVAL_KEYS = ("images", "calibs", "img_sizes")
 
 
 def kitti_eval(results_dir, label_dir, idx_list, writelist, logger):
@@ -69,6 +73,7 @@ class Tester:
         self.logger = logger
         self.train_cfg = train_cfg or {}
         self.device = torch.device(device)
+        self.eval_step = make_eval_step(model, topk=self.cfg.get("topk", 50))
         self.output_dir = os.path.join(
             "./" + self.train_cfg.get("save_path", "outputs/"), model_name)
 
@@ -133,23 +138,22 @@ class Tester:
                 self.evaluate()
         return results
 
-    @torch.no_grad()
     def predict(self, images, calibs, img_sizes):
         """numpy batch -> [B, topk, 37] numpy detections."""
-        def dev(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-        out = self.model(dev(images), dev(calibs), dev(img_sizes))
-        dets = extract_dets_from_outputs(out, topk=self.cfg.get("topk", 50))
-        return dets.cpu().numpy()
+        on_card = batch_to_device(
+            {"images": images, "calibs": calibs, "img_sizes": img_sizes}, self.device, EVAL_KEYS)
+        return self.eval_step(*(on_card[k] for k in EVAL_KEYS)).cpu().numpy()
 
     def inference(self):
-        self.model.eval()
+        """Detections of every batch of the loader, decoded to KITTI rows
+        and written as txts.  The next batch's copy to the card overlaps
+        this batch's forward; the per-image model time runs from the
+        forward's launch to its detections on the host."""
         results = {}
         model_times = []
-        for batch, infos in self.dataloader:
+        for on_card, batch, infos in DevicePrefetcher(self.dataloader, self.device, EVAL_KEYS):
             t0 = time.time()
-            dets = self.predict(batch["images"], batch["calibs"], batch["img_sizes"])
+            dets = self.eval_step(*(on_card[k] for k in EVAL_KEYS)).cpu().numpy()
             model_times.append((time.time() - t0) / len(infos))
 
             n_valid = len(infos)

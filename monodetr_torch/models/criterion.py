@@ -22,7 +22,10 @@ count.  The matching stays per image, on the rank's own targets.
 import torch
 
 from ..ops import box_ops
+from ..ops.losses import (dim_aware_l1_loss, laplacian_aleatoric_uncertainty_loss,
+                          sigmoid_focal_loss)
 from ..ops.utils import bin_depths
+from ..utils.misc import component
 from .matcher import hungarian_match
 
 LAYER_KEYS = ("pred_logits", "pred_boxes", "pred_3d_dim", "pred_depth", "pred_angle")
@@ -50,12 +53,8 @@ def loss_labels(outputs, targets, matched_q, num_boxes, focal_alpha=0.25):
     target_classes.scatter_(1, idx, labels.reshape(B, -1))
     classes = torch.arange(C, device=logits.device)
     onehot = (target_classes[:, :QG, None] == classes).to(logits.dtype)  # no-object: 0
-    prob = torch.sigmoid(logits)
-    ce = logits.clamp(min=0) - logits * onehot + torch.log1p(torch.exp(-logits.abs()))
-    p_t = prob * onehot + (1 - prob) * (1 - onehot)
-    loss = ce * (1 - p_t) ** 2
-    alpha_t = focal_alpha * onehot + (1 - focal_alpha) * (1 - onehot)
-    return {"loss_ce": (alpha_t * loss).sum() / num_boxes}
+    # the class mean times C: the sum over classes (monodetr.py:342)
+    return {"loss_ce": sigmoid_focal_loss(logits, onehot, num_boxes, focal_alpha) * C}
 
 
 @torch.no_grad()
@@ -93,8 +92,8 @@ def loss_depths(outputs, targets, matched_q, num_boxes):
     d, logvar = src[..., 0], src[..., 1]
     tgt = targets["depth"][:, None, :, 0]
     valid = targets["mask"][:, None, :]
-    loss = 1.4142 * torch.exp(-logvar) * (d - tgt).abs() + logvar
-    return {"loss_depth": torch.where(valid, loss, 0.0).sum() / num_boxes}
+    loss = laplacian_aleatoric_uncertainty_loss(d, tgt, logvar, reduction="sum", mask=valid)
+    return {"loss_depth": loss / num_boxes}
 
 
 def loss_dims(outputs, targets, matched_q, num_boxes, dp=None):
@@ -104,18 +103,11 @@ def loss_dims(outputs, targets, matched_q, num_boxes, dp=None):
     src = _gather_queries(outputs["pred_3d_dim"], matched_q)  # [B, G, T, 3]
     tgt = targets["size_3d"][:, None, :, :]
     valid = targets["mask"][:, None, :, None]
-    abs_err = (src - tgt).abs()
     # padded target sizes are 0: divide by 1 there, so masked entries put
     # no inf into the backward (0 * inf = NaN)
-    safe_tgt = torch.where(valid, tgt.expand_as(src), 1.0).detach()
-    dim_loss = abs_err / safe_tgt
-    sums = torch.stack([valid.sum() * 3.0, torch.where(valid, abs_err, 0.0).sum(),
-                        torch.where(valid, dim_loss, 0.0).sum()]).detach()
-    if dp is not None:
-        sums = dp.sum(sums)
-    n = sums[0].clamp(min=1.0)
-    comp = (sums[1] / n) / (sums[2] / n)
-    return {"loss_dim": torch.where(valid, dim_loss * comp, 0.0).sum() / num_boxes}
+    safe_tgt = torch.where(valid, tgt.expand_as(src), 1.0)
+    loss = dim_aware_l1_loss(src, tgt, safe_tgt, mask=valid, reduction="sum", dp=dp)
+    return {"loss_dim": loss / num_boxes}
 
 
 def loss_angles(outputs, targets, matched_q, num_boxes):
@@ -240,7 +232,8 @@ class SetCriterion:
             n_targets = dp.sum(n_targets)
         num_boxes = (n_targets * group_num).clamp(min=1.0)
         aux = outputs.get("aux_outputs", [])
-        matched = self.match(outputs, targets, train)
+        with component("matcher"):
+            matched = self.match(outputs, targets, train)
         losses = {}
         for i, layer in enumerate(aux + [outputs]):
             per = self._single({k: layer[k] for k in LAYER_KEYS}, targets, matched[i], num_boxes,

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.utils import grid_sample_bilinear, inverse_sigmoid
+from ..utils.misc import component
 from .backbone import BACKBONE_NUM_CHANNELS, FrozenBatchNorm2d, ResNetBackbone
 from .depth_predictor import DepthPredictor
 from .layers import MLP, MultiheadAttention, conv_gn
@@ -116,7 +117,8 @@ class MonoDETR(nn.Module):
         dtype = self.depthaware_transformer.level_embed.dtype
         # NHWC memory seen as NCHW: channels_last, no copy
         x = images.to(dtype).permute(0, 3, 1, 2)
-        feats = self.backbone[0](x)
+        with component("backbone"):
+            feats = self.backbone[0](x)
         srcs = [self.input_proj[i](feats[i]) for i in range(3)]
         srcs.append(self.input_proj[3](feats[2]))
         B = images.shape[0]
@@ -127,8 +129,9 @@ class MonoDETR(nn.Module):
             pos = [sine_pos_table(s.shape[2], s.shape[3], self.hidden_dim, images.device)[None]
                    .expand(B, -1, -1, -1) for s in srcs]
 
-        depth_logits, depth_tokens, weighted_depth, _ = self.depth_predictor(
-            srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype), gen)
+        with component("depth predictor"):
+            depth_logits, depth_tokens, weighted_depth, _ = self.depth_predictor(
+                srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype), gen)
 
         if self.query_free:
             queries = None

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.utils import device_constant, inverse_sigmoid
+from ..utils.misc import component
 from .layers import MLP, MultiheadAttention, checkpoint_with_gen, dropout, ffn
 from .msda_module import MSDeformAttn
 
@@ -152,12 +153,16 @@ class VisualEncoderLayer(nn.Module):
     def forward(self, src, pos, reference_points, spatial_shapes, gen=None):
         attn = self.self_attn
         if not (self.remat and torch.is_grad_enabled()):
-            op, args = attn.sampling(src + pos, reference_points, src, spatial_shapes)
-            return self._after_sampling(src, op(*args), gen)
-        op, args = checkpoint(
-            lambda s, q: attn.sampling(s + q, reference_points, s, spatial_shapes), src, pos,
-            use_reentrant=False, preserve_rng_state=False)
-        return checkpoint_with_gen(self._after_sampling, src, op(*args), gen=gen)
+            with component("encoder MSDA"):
+                op, args = attn.sampling(src + pos, reference_points, src, spatial_shapes)
+                sampled = op(*args)
+            return self._after_sampling(src, sampled, gen)
+        with component("encoder MSDA"):
+            op, args = checkpoint(
+                lambda s, q: attn.sampling(s + q, reference_points, s, spatial_shapes), src, pos,
+                use_reentrant=False, preserve_rng_state=False)
+            sampled = op(*args)
+        return checkpoint_with_gen(self._after_sampling, src, sampled, gen=gen)
 
     def _after_sampling(self, src, sampled, gen):
         p = self.dropout
@@ -193,25 +198,28 @@ class DepthAwareDecoderLayer(nn.Module):
         self-attention runs within each group of num_queries."""
         p = self.dropout
         # (1) depth cross-attention: raw tgt queries x depth tokens (:456-462)
-        tgt2 = self.cross_attn_depth(tgt, depth_embed, depth_embed, gen)
+        with component("decoder depth cross-attention"):
+            tgt2 = self.cross_attn_depth(tgt, depth_embed, depth_embed, gen)
         tgt = self.norm_depth(tgt + dropout(tgt2, p, gen))
         # (2) self-attention (:465-503); both projections of each pair read
         # tgt + query_pos, as in JAX
-        qk = tgt + query_pos
-        q = self.sa_qcontent_proj(qk) + self.sa_qpos_proj(qk)
-        k = self.sa_kcontent_proj(qk) + self.sa_kpos_proj(qk)
-        B, Q, C = tgt.shape
-        g, nq = self.group_num, self.num_queries
-        if Q == g * nq:
-            def regroup(x):
-                return x.reshape(B * g, nq, C)
+        with component("decoder self-attention"):
+            qk = tgt + query_pos
+            q = self.sa_qcontent_proj(qk) + self.sa_qpos_proj(qk)
+            k = self.sa_kcontent_proj(qk) + self.sa_kpos_proj(qk)
+            B, Q, C = tgt.shape
+            g, nq = self.group_num, self.num_queries
+            if Q == g * nq:
+                def regroup(x):
+                    return x.reshape(B * g, nq, C)
 
-            tgt2 = self.self_attn(regroup(q), regroup(k), regroup(tgt), gen).reshape(B, Q, C)
-        else:
-            tgt2 = self.self_attn(q, k, tgt, gen)
+                tgt2 = self.self_attn(regroup(q), regroup(k), regroup(tgt), gen).reshape(B, Q, C)
+            else:
+                tgt2 = self.self_attn(q, k, tgt, gen)
         tgt = self.norm2(tgt + dropout(tgt2, p, gen))
         # (3) deformable cross-attention into the encoder memory (:506-508)
-        tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes)
+        with component("decoder MSDA"):
+            tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes)
         tgt = self.norm1(tgt + dropout(tgt2, p, gen))
         return ffn(tgt, self.linear1, self.linear2, self.norm3, p, gen)
 
@@ -298,8 +306,9 @@ class DepthAwareTransformer(nn.Module):
 
         enc_ref = device_constant(encoder_reference_points, (spatial_shapes,), memory.device)
         enc_ref = enc_ref[None, :, None, :].expand(B, -1, len(spatial_shapes), 2)
-        for layer in self.encoder.layers:
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, gen)
+        with component("encoder"):
+            for layer in self.encoder.layers:
+                memory = layer(memory, pos_flat, enc_ref, spatial_shapes, gen)
 
         enc_class = enc_coord = idx = None
         if self.two_stage or self.two_stage_dino:
@@ -353,25 +362,27 @@ class DepthAwareTransformer(nn.Module):
         per_layer_query_pos = self.use_dab or self.two_stage_dino
 
         hs, refs_in, dims = [], [], []
-        for lid, layer in enumerate(self.decoder.layers):
-            ref_dim = reference_points.shape[-1]
-            ref_input = reference_points[:, :, None, :].expand(-1, -1, len(spatial_shapes), ref_dim)
-            if per_layer_query_pos:
-                # the sine embedding of the current reference (:384-408)
-                query_pos = self.decoder.ref_point_head(
-                    gen_sineembed_for_position(reference_points).to(dtype))
-                if lid != 0:
-                    query_pos = self.decoder.query_scale(tgt) * query_pos
-            tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, depth_embed, gen)
-            hs.append(tgt)
-            refs_in.append(reference_points)
-            dims.append(dim_heads[lid](tgt).float())
-            # iterative refinement, detached (:601-613)
-            tmp = bbox_heads[lid](tgt).float()
-            if ref_dim == 6:
-                new_ref = tmp + inverse_sigmoid(reference_points)
-            else:
-                new_ref = torch.cat([tmp[..., :2] + inverse_sigmoid(reference_points),
-                                     tmp[..., 2:]], -1)
-            reference_points = torch.sigmoid(new_ref).detach()
+        with component("decoder"):
+            for lid, layer in enumerate(self.decoder.layers):
+                ref_dim = reference_points.shape[-1]
+                ref_input = reference_points[:, :, None, :].expand(-1, -1, len(spatial_shapes),
+                                                                   ref_dim)
+                if per_layer_query_pos:
+                    # the sine embedding of the current reference (:384-408)
+                    query_pos = self.decoder.ref_point_head(
+                        gen_sineembed_for_position(reference_points).to(dtype))
+                    if lid != 0:
+                        query_pos = self.decoder.query_scale(tgt) * query_pos
+                tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, depth_embed, gen)
+                hs.append(tgt)
+                refs_in.append(reference_points)
+                dims.append(dim_heads[lid](tgt).float())
+                # iterative refinement, detached (:601-613)
+                tmp = bbox_heads[lid](tgt).float()
+                if ref_dim == 6:
+                    new_ref = tmp + inverse_sigmoid(reference_points)
+                else:
+                    new_ref = torch.cat([tmp[..., :2] + inverse_sigmoid(reference_points),
+                                         tmp[..., 2:]], -1)
+                reference_points = torch.sigmoid(new_ref).detach()
         return torch.stack(hs), refs_in, torch.stack(dims), enc_class, enc_coord, idx

@@ -3,7 +3,7 @@
     python -m monodetr_torch.profile_train [--batch 16] [--steps 3] [--out outputs/profile]
         [--msda-impl fused] [--dec-msda-impl sep]
         [--backbone resnet50] [--height 384] [--width 1280] [--remat 0]
-        [--query standard]
+        [--query standard] [--by-component]
 
 The shipped model (configs/monodetr.yaml, full width and depth, seeded
 random weights; the two impl options switch its deformable attention to
@@ -25,6 +25,12 @@ time; the step runs on one stream, so kernels do not overlap) of the
 profiled window and of the median unprofiled step.  The profiler's own
 host work lengthens its window, so the second share is the one a step
 without it sees.  The Chrome trace is written to <out>/train_trace.json.
+With --by-component the profiled window's device time is also split by
+the parts of the step that tools/profile_step.py:COMPONENTS names
+(COMPONENTS below): each kernel goes to the innermost profiler range of
+utils/misc.py:component around the operator that launched it, and a
+kernel of the backward to the range of the forward operator that made its
+autograd node (the node's sequence number and forward thread).
 Needs a CUDA card.
 """
 
@@ -42,6 +48,7 @@ from .models.transformer import QUERY_VARIANTS
 from .train.optimizer import build_optimizer
 from .train.synthetic import SyntheticLoader
 from .train.train_step import batch_to_device, make_train_step
+from .utils.misc import COMPONENT_PREFIX
 
 TIMED_STEPS = 30
 # kernel-name substrings -> group, first match wins
@@ -83,6 +90,61 @@ GROUPS = (
 )
 
 
+# the ranges of utils/misc.py:component in the step (a kernel outside all
+# of them is "other": input projections, position tables, the query
+# variants' proposals, the heads after the decoder, the loss sum's
+# backward, data parallel's all-reduce)
+COMPONENTS = ("backbone", "depth predictor", "encoder", "encoder MSDA", "decoder",
+              "decoder self-attention", "decoder MSDA", "decoder depth cross-attention",
+              "matcher", "criterion", "optimizer")
+BACKWARD_FUNCTION = 1  # at::RecordScope of an autograd node's backward
+# the autograd engine's range around a node's backward and the reduction of
+# its gradients to their inputs' shapes; it carries the node's sequence number
+ENGINE_NODE = "autograd::engine::evaluate_function: "
+
+
+def device_kernels(events):
+    """The device events of a torch.profiler run, less the component ranges
+    that the profiler mirrors on the device's timeline."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(COMPONENT_PREFIX)]
+
+
+def event_components(events):
+    """[(component, event)] for every operator event of a torch.profiler
+    run that is not a component range itself: the innermost component range
+    around it; inside an autograd node's backward, the component of the
+    forward operator that made the node; else "other"."""
+    def walk(e):
+        """(component, None) at the innermost range, (None, node) at the
+        innermost backward node, or (None, None)."""
+        while e is not None:
+            if e.name.startswith(COMPONENT_PREFIX):
+                return e.name[len(COMPONENT_PREFIX):], None
+            if e.sequence_nr >= 0 and (e.scope == BACKWARD_FUNCTION
+                                       or e.name.startswith(ENGINE_NODE)):
+                return None, e
+            e = e.cpu_parent
+        return None, None
+
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and not e.name.startswith(COMPONENT_PREFIX)]
+    forward = {}
+    for e in sorted(ops, key=lambda e: e.time_range.start):
+        if e.sequence_nr >= 0 and e.scope != BACKWARD_FUNCTION \
+                and not e.name.startswith(ENGINE_NODE):
+            comp, node = walk(e)
+            if comp is not None:
+                forward[(e.thread, e.sequence_nr)] = comp
+    out = []
+    for e in ops:
+        comp, node = walk(e)
+        if comp is None and node is not None:
+            comp = forward.get((node.fwd_thread, node.sequence_nr))
+        out.append((comp or "other", e))
+    return out
+
+
 def group_of(name):
     low = name.lower()
     for key, group in GROUPS:
@@ -104,6 +166,8 @@ def main(argv=None):
     parser.add_argument("--remat", default="0", help="0, 1, backbone, encoder or all")
     parser.add_argument("--query", default="standard",
                         choices=("standard",) + QUERY_VARIANTS)
+    parser.add_argument("--by-component", action="store_true",
+                        help="also split the device time by the step's components")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train: needs a CUDA card")
@@ -143,7 +207,7 @@ def main(argv=None):
         torch.cuda.synchronize()
     window_ms = start.elapsed_time(end)
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof.events())
     by_group, by_name, counts = defaultdict(float), defaultdict(float), defaultdict(int)
     for e in kernels:
         ms = e.device_time_total / 1000.0
@@ -171,8 +235,32 @@ def main(argv=None):
     print("top kernels:")
     for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:20]:
         print(f"  {ms / n:8.2f} ms/step  {name[:110]}")
+    if args.by_component:
+        print_components(prof.events(), busy, n)
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out, "train_trace.json"))
+
+
+def print_components(events, busy, n):
+    """The kernels' device time per step by component (event_components)
+    beside its share of all kernel time, and the kernels no operator event
+    claims."""
+    by_comp, launches, other = defaultdict(float), defaultdict(int), defaultdict(float)
+    for comp, e in event_components(events):
+        for k in e.kernels:
+            by_comp[comp] += k.duration / 1000.0
+            launches[comp] += 1
+            if comp == "other":
+                other[e.name] += k.duration / 1000.0
+    claimed = sum(by_comp.values())
+    print(f"by component (kernels from the operator that launched them; "
+          f"{busy - claimed:.2f} ms of {busy:.2f} in the window unclaimed):")
+    print(f"{'component':32s} {'ms/step':>9s} {'share':>7s} {'kernels/step':>13s}")
+    for comp in COMPONENTS + ("other",):
+        ms = by_comp.get(comp, 0.0)
+        print(f"{comp:32s} {ms / n:9.2f} {ms / busy:7.3f} {launches.get(comp, 0) // n:13d}")
+    print("other, by the operator that launched the kernels: " + ", ".join(
+        f"{name} {ms / n:.2f}" for name, ms in sorted(other.items(), key=lambda x: -x[1])[:10]))
 
 
 if __name__ == "__main__":

@@ -18,17 +18,31 @@ summed over ranks, and every rank takes the same optimizer step.
 import numpy as np
 import torch
 
+from ..utils.misc import component
+
 TARGET_KEYS = ("labels", "boxes", "boxes_3d", "depth", "size_3d", "heading_bin",
                "heading_res", "mask")
 BATCH_KEYS = ("images", "calibs", "img_sizes") + TARGET_KEYS
 
 
-def batch_to_device(batch, device):
-    """The loader's numpy batch as tensors on `device` (mask as bool)."""
+def batch_to_device(batch, device, keys=BATCH_KEYS):
+    """The loader's numpy batch (its `keys`) as tensors on `device` (mask as
+    bool).
+
+    On a CUDA device each array is copied into pinned host memory and from
+    there to the card by a copy queued on the current stream, without
+    waiting for the card: the host may free or reuse the pinned buffer
+    only after that copy ends (the caching host allocator records the
+    copy's event).  A buffer that cannot be pinned raises.  On the CPU the
+    arrays are taken as they are (a CPU-only build cannot pin)."""
+    device = torch.device(device)
     out = {}
-    for k in BATCH_KEYS:
-        t = torch.from_numpy(np.ascontiguousarray(batch[k]))
-        out[k] = t.to(device, torch.bool if k == "mask" else None)
+    for k in keys:
+        t = torch.from_numpy(np.ascontiguousarray(batch[k], bool if k == "mask" else None))
+        if device.type == "cuda":
+            out[k] = t.pin_memory().to(device, non_blocking=True)
+        else:
+            out[k] = t.to(device)
     return out
 
 
@@ -47,13 +61,15 @@ def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32, dp
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
             out = model(batch["images"], batch["calibs"], batch["img_sizes"], train=True,
                         gen=gen)
-        losses = criterion(out, {k: batch[k] for k in TARGET_KEYS}, train=True, dp=dp)
-        total = criterion.total(losses)
+        with component("criterion"):
+            losses = criterion(out, {k: batch[k] for k in TARGET_KEYS}, train=True, dp=dp)
+            total = criterion.total(losses)
         optimizer.zero_grad()
         total.backward()
         if dp is not None:
             dp.sum_grads(optimizer.params)
-        optimizer.step(lr)
+        with component("optimizer"):
+            optimizer.step(lr)
         keys = sorted(losses)
         if not loss_keys:
             loss_keys.extend(keys + ["loss_detr"])
@@ -61,6 +77,21 @@ def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32, dp
         return LossVector(tuple(loss_keys), stacked if dp is None else dp.sum(stacked))
 
     return train_step
+
+
+def make_eval_step(model, topk=50, threshold=0.2):
+    """Returns eval_step(images, calibs, img_sizes) -> detections [B, topk,
+    37] (eval/decode.py:extract_dets_from_outputs), the eval forward and
+    the top-k under no_grad (monodetr_tpu/train/train_step.py:85-97; as
+    there, `threshold` is the decode's, applied on the host)."""
+    from ..eval.decode import extract_dets_from_outputs
+
+    @torch.no_grad()
+    def eval_step(images, calibs, img_sizes):
+        model.eval()
+        return extract_dets_from_outputs(model(images, calibs, img_sizes), topk=topk)
+
+    return eval_step
 
 
 class LossVector:

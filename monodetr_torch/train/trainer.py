@@ -18,7 +18,8 @@ from .checkpoint import (get_checkpoint_state, load_checkpoint, load_model_state
                          load_optimizer_state, merge_params, save_checkpoint, to_jax_tree)
 from .optimizer import build_optimizer
 from .scheduler import lr_at_epoch
-from .train_step import batch_to_device, make_train_step
+from .train_step import make_train_step
+from ..data.device_prefetch import DevicePrefetcher
 from ..utils.misc import is_main_process
 
 
@@ -125,13 +126,16 @@ class Trainer:
         # epoch to <output>/profile
         profile_steps = int(self.cfg.get("profile_steps", 0)) if epoch == 0 else 0
         prof = None
-        for batch_idx, (batch, _infos) in enumerate(self.train_loader):
+        # batch k+1's copy to the card overlaps step k; the loss read every
+        # 30 batches is the loop's one wait for the card
+        batches = DevicePrefetcher(self.train_loader, self.device)
+        for batch_idx, (on_card, batch, _infos) in enumerate(batches):
             if profile_steps and batch_idx == 2:
                 prof = self._start_profile()
             if prof is not None and batch_idx == 2 + profile_steps:
                 self._stop_profile(prof)
                 prof = None
-            losses = self.train_step(batch_to_device(batch, self.device), lr, self.gen)
+            losses = self.train_step(on_card, lr, self.gen)
             n_imgs += int(batch["valid"].sum())
             if batch_idx % 30 == 0:
                 values = {k: float(v) for k, v in losses.items()}  # one copy

@@ -967,3 +967,62 @@ def test_remat_step_on_the_card_equals_the_step_without(cuda):
         assert other[1].keys() == runs[0][1].keys()
         for n, g in runs[0][1].items():
             assert (other[1][n] - g).abs().max() <= 1e-5 * g.abs().max() + 1e-12, n
+
+
+def test_prefetched_step_makes_no_synchronizing_call(cuda):
+    """The handoff (data/device_prefetch.py) and bf16 train steps (2 + 2
+    layers, 128x256, B=2, dropout 0.1) under
+    torch.cuda.set_sync_debug_mode("error"): no call waits for the card;
+    the blocking pageable copy, under the same mode, raises."""
+    from monodetr_torch.data.device_prefetch import DevicePrefetcher
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.train.optimizer import build_optimizer
+    from monodetr_torch.train.synthetic import SyntheticLoader
+    from monodetr_torch.train.train_step import batch_to_device, make_train_step
+
+    cfg = dict(msda_impl="fused", msda_window=6, dec_msda_impl="sep", enc_layers=2,
+               dec_layers=2, dropout=0.1)
+    model = build_monodetr(cfg, seed=0).to(cuda)
+    step = make_train_step(model, SetCriterion(cfg),
+                           build_optimizer({"type": "adamw", "lr": 2e-4}, model), torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = next(iter(SyntheticLoader(1, 2, 0, 128, 256)))[0]
+    step(batch_to_device(batch, cuda), 2e-4, gen)  # first-call set-up, outside the check
+    torch.cuda.synchronize()
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for on_card, _, _ in DevicePrefetcher(SyntheticLoader(4, 2, 1, 128, 256), cuda):
+            losses.append(step(on_card, 2e-4, gen))
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.from_numpy(batch["images"]).to(cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    values = torch.stack([lv.values for lv in losses])
+    assert len(losses) == 4 and torch.isfinite(values).all()
+
+
+def test_pinned_copies_are_bit_equal_to_the_blocking_copy(cuda):
+    """batch_to_device on the card (pinned host copies, non-blocking) and
+    the prefetcher's side-stream copies give the blocking pageable copy's
+    tensors bit for bit, mask as bool; the pinned buffers may be freed
+    while the copies are in flight."""
+    from monodetr_torch.data.device_prefetch import DevicePrefetcher
+    from monodetr_torch.train.synthetic import SyntheticLoader
+    from monodetr_torch.train.train_step import BATCH_KEYS, batch_to_device
+
+    def blocking(batch):
+        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+            cuda, torch.bool if k == "mask" else None) for k in BATCH_KEYS}
+
+    loader = SyntheticLoader(5, 4, 2, 384, 1280)
+    prefetched = list(DevicePrefetcher(loader, cuda))
+    direct = [(batch_to_device(b, cuda), b) for b, _ in loader]
+    torch.cuda.synchronize()
+    assert len(prefetched) == len(direct) == 5
+    for (on_card, batch, _), (copied, batch2) in zip(prefetched, direct):
+        want = blocking(batch)
+        for k in BATCH_KEYS:
+            assert on_card[k].device.type == "cuda" and on_card[k].dtype == want[k].dtype, k
+            assert torch.equal(on_card[k], want[k]), k
+            assert torch.equal(copied[k], blocking(batch2)[k]), k

@@ -2,9 +2,11 @@
 pipeline and the KITTI evaluator compute what the originals do.
 
 An AST walk over every module of monodetr_torch, chip_smoke.py and the
-port's CLI (tools/train_val_torch.py) refuses any import of jax, flax or
-monodetr_tpu and any path built from the string "monodetr_tpu" (a `file.py:line` citation of a
-counterpart, as in a docstring, is fine).  The port's KITTIDataset gives the
+port's tools (tools/*_torch.py: the CLI and the validation tools, which of
+the tests take only tests/synthetic_kitti.py, itself numpy and PIL)
+refuses any import of jax, flax or monodetr_tpu and any path built from
+the string "monodetr_tpu" (a `file.py:line` citation of a counterpart, as
+in a docstring, is fine).  The port's KITTIDataset gives the
 JAX package's arrays for the same numpy seed, with augmentation on (train)
 and off (val), and its DataLoader the same batches.  The decode's
 calibration loads without the dataset's image libraries."""
@@ -31,7 +33,9 @@ CITATION = re.compile(r"^monodetr_tpu(/\w+)+\.py:\d+$")
 
 
 def port_files():
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "train_val_torch.py")]
+    tools = os.path.join(REPO, "tools")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(tools, n) for n in sorted(os.listdir(tools)) if n.endswith("_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "monodetr_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(files)
