@@ -5,7 +5,11 @@
 Phases, one line each (or a few), and any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit;
      exits 1 when no CUDA device is present;
-  2. build the CUDA kernels from monodetr_torch/csrc;
+  2. build the CUDA kernels from monodetr_torch/csrc (nvcc) and, beside
+     them, the loader's and the evaluator's host kernels from
+     monodetr_torch/csrc/kitti_native.cpp (g++ -march=native), with the
+     host library's path, its build seconds and whether the CPU has
+     avx512f;
   3. each forward kernel against its plain PyTorch version on the card at
      the slices' shapes, in f32 (TF32 off) and bf16, with both times;
      kernels 2 and 7 at the 50 eval queries and the 550 training queries,
@@ -93,9 +97,24 @@ Phases, one line each (or a few), and any failure exits non-zero:
      training with its evaluations, then -e, each in a process of its own
      that must exit 0, write the tester's rows and report its launches;
  13. tools/validate_clamp_torch.py, short: fused G=6 against gather, 10
-     bf16 steps at batch 2, 384x1280, max relative loss difference <= 0.1.
+     bf16 steps at batch 2, 384x1280, max relative loss difference <= 0.1;
+ 14. the host kernels on the card's host: the warp, the rotated IoU and the
+     evaluator's matching against their plain versions (PIL, numpy) at
+     tests/test_native.py's and test_native_match.py's tolerances, and
+     the whole official evaluation native against plain; then the
+     loader's cost per image on this host (PNG decode, the warp native and
+     plain, target encoding, the whole item) over 32 synthetic KITTI
+     images, one thread (smoke readings);
+ 15. the pretrained start through the port alone: a seeded state dict in
+     torchvision's ResNet-50 layout converted by
+     tools/convert_checkpoint_torch.py --torchvision-backbone, the
+     Trainer's merged backbone held to it before the first step, 1 epoch
+     of the CLI from it as trainer.pretrain_model with its evaluation;
+     then a reference-layout MonoDETR .pth converted by the same tool,
+     evaluated by the CLI with -e, and its detections on one batch held to
+     those of the model it came from (f32, TF32 off, phase 5's tolerance).
 The kernel report (JSON) sums each kernel's launches over the main-path
-runs of phases 5-13 and fails if one of them is 0; it is the second-to-last
+runs of phases 5-15 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
 least time the card could take for the same work at the timed shape
 (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s and its
@@ -112,7 +131,7 @@ backward at 0), which gives dropout's share of its time.  The last line is
 
 With --decoder-msda-only the run is phases 1 and 2 and what phases 3 and 4
 do for kernels 2 and 7, with --lap-only phases 1 and 2 and the LAP
-part of phase 4, and with --learning-loop-only phases 1, 2 and 11-13;
+part of phase 4, and with --learning-loop-only phases 1, 2 and 11-15;
 none prints the report or the last line.  Each is a
 minute or less for those kernels' times, e.g. of two checkouts one after
 the other on one card (the wrappers they call are `ms_deform_attn_sep`,
@@ -316,10 +335,25 @@ def phase_environment():
 
 
 def phase_build():
-    t0 = time.time()
-    lib = _build.build()
+    """The CUDA kernels (nvcc) and, beside them in a thread, the host
+    kernels of the loader and the evaluator (g++)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.time()
+        return fn(), time.time() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(timed, _build.build_host)
+        lib, seconds = timed(_build.build)
+        host_lib, host_seconds = host.result()
     _build.library()
-    log(f"build: {lib.relative_to(REPO)} in {time.time() - t0:.1f} s")
+    _build.host_library()
+    log(f"build: {lib.relative_to(REPO)} in {seconds:.1f} s")
+    log(f"build: host kernels {host_lib.relative_to(REPO)} from "
+        f"{_build.HOST_SRC.relative_to(REPO)} (g++ {' '.join(_build.HOST_FLAGS)}) in "
+        f"{host_seconds:.1f} s; this host's CPU has avx512f: "
+        f"{'avx512f' in _build.cpu_flags().split()}, {os.cpu_count()} cores")
 
 
 def randn(gen, *shape, scale=1.0):
@@ -1589,14 +1623,16 @@ def run_counted(tool, args, cwd, timeout):
     return proc.returncode, counts, (proc.stdout + proc.stderr)[-2000:]
 
 
-def phase_cli():
-    """Phase 12: the port's CLI (tools/train_val_torch.py) on the card: 2
-    epochs on 8 synthetic KITTI images (tools/overfit_synthetic_torch.py's
-    config: val == train, batch 8, one epoch a step, the tester at epoch 2
-    and after training; threshold 0, so every image gets its 50 rows), then
-    `-e`; each must exit 0 and write one txt of 50 rows per image.  Each
-    run is a process of its own; its launches are counted there (2 train
-    steps and 2 eval batches; 1 eval batch) and returned."""
+CLI_TOOL = os.path.join(REPO, "tools", "train_val_torch.py")
+CLI_PER_FORWARD = {"msda_enc_fused": 3, "msda_sep": 3, "attention_fwd": 1}
+
+
+def cli_config(workdir, epochs, **sections):
+    """A fresh `workdir` holding phase 12's split (8 synthetic KITTI images,
+    val == train) and tools/overfit_synthetic_torch.py's config for it at
+    `epochs` (batch 8, one epoch a step, the tester at the last epoch and
+    after training; threshold 0, so every image gets its 50 rows), each
+    config section updated from `sections`; (its path, the config)."""
     import shutil
 
     import yaml
@@ -1604,8 +1640,6 @@ def phase_cli():
     sys.path.insert(1, os.path.join(REPO, "tools"))
     from overfit_synthetic_torch import make_config
 
-    t0 = time.time()
-    workdir = os.path.join(REPO, "tmp", "chip_smoke_cli")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     root = synthetic_kitti(os.path.join(workdir, "kitti"), 8, seed=3)
@@ -1613,32 +1647,53 @@ def phase_cli():
         ids = f.read()
     with open(os.path.join(root, "ImageSets", "val.txt"), "w") as f:
         f.write(ids)
-    cfg_path = make_config(workdir, root, 8, 2)
+    cfg_path = make_config(workdir, root, 8, epochs)
     with open(cfg_path) as f:
         cfg = yaml.safe_load(f)
     cfg["tester"]["threshold"] = 0.0
+    for name, values in sections.items():
+        cfg[name].update(values)
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
-    tool = os.path.join(REPO, "tools", "train_val_torch.py")
-    per_forward = {"msda_enc_fused": 3, "msda_sep": 3, "attention_fwd": 1}
-    want = {"train": {k: 2 * DEFAULT_PER_STEP.get(k, 0) + 2 * per_forward.get(k, 0)
-                      for k in DEFAULT_PER_STEP},
-            "-e": per_forward}
-    totals = dict.fromkeys(KERNELS, 0)
+    return cfg_path, cfg
+
+
+def run_cli(label, cfg_path, workdir, extra, want):
+    """tools/train_val_torch.py --config cfg_path --device cuda (+ extra) in
+    a process of its own, from `workdir`: it must exit 0, write one txt of
+    50 rows for each of the 8 images and launch exactly `want`; returns its
+    launch counts."""
+    import shutil
+
     data = os.path.join(workdir, "outputs", "overfit", "outputs", "data")
+    shutil.rmtree(data, ignore_errors=True)
+    rc, counts, tail = run_counted(CLI_TOOL, ["--config", cfg_path, "--device", "cuda"] + extra,
+                                   workdir, 600)
+    txts = sorted(os.listdir(data)) if os.path.isdir(data) else []
+    rows = [len(open(os.path.join(data, t)).read().splitlines()) for t in txts]
+    ok = rc == 0 and counts == want and len(txts) == 8 and set(rows) == {50}
+    log(f"{label}: tools/train_val_torch.py exit {rc}, {len(txts)} txts of "
+        f"{sorted(set(rows))} rows, launches {counts} (want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{label}: {tail}")
+    return counts
+
+
+def phase_cli():
+    """Phase 12: the port's CLI (tools/train_val_torch.py) on the card: 2
+    epochs on 8 synthetic KITTI images (cli_config), then `-e`; each must
+    exit 0 and write one txt of 50 rows per image.  Each run is a process
+    of its own; its launches are counted there (2 train steps and 2 eval
+    batches; 1 eval batch) and returned."""
+    t0 = time.time()
+    workdir = os.path.join(REPO, "tmp", "chip_smoke_cli")
+    cfg_path, _ = cli_config(workdir, 2)
+    want = {"train": {k: 2 * DEFAULT_PER_STEP.get(k, 0) + 2 * CLI_PER_FORWARD.get(k, 0)
+                      for k in DEFAULT_PER_STEP},
+            "-e": CLI_PER_FORWARD}
+    totals = dict.fromkeys(KERNELS, 0)
     for name, extra in (("train", []), ("-e", ["-e"])):
-        shutil.rmtree(data, ignore_errors=True)
-        rc, counts, tail = run_counted(tool, ["--config", cfg_path, "--device", "cuda"] + extra,
-                                       workdir, 600)
-        txts = sorted(os.listdir(data)) if os.path.isdir(data) else []
-        rows = [len(open(os.path.join(data, t)).read().splitlines()) for t in txts]
-        ok = rc == 0 and counts == want[name] and len(txts) == 8 and set(rows) == {50}
-        log(f"cli {name}: tools/train_val_torch.py exit {rc}, {len(txts)} txts of "
-            f"{sorted(set(rows))} rows, launches {counts} (want {want[name]}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"cli {name}: {tail}")
-        for k, v in counts.items():
+        for k, v in run_cli(f"cli {name}", cfg_path, workdir, extra, want[name]).items():
             totals[k] += v
     log(f"phase 12 (CLI) in {time.time() - t0:.1f} s")
     return {k: v for k, v in totals.items() if v}
@@ -1680,13 +1735,313 @@ def phase_clamp():
     return counts
 
 
+MATCH_CASES = 6  # seeds, each with compute_fp off and on
+
+
+def match_case(rng, n_gt, n_dt):
+    """A random matching problem (tests/test_kitti_eval.py:random_case)."""
+    overlaps = rng.rand(n_dt, n_gt)
+    gt = np.concatenate([rng.rand(n_gt, 4) * 100, rng.uniform(-np.pi, np.pi, (n_gt, 1))], 1)
+    dt = np.concatenate([rng.rand(n_dt, 4) * 100, rng.uniform(-np.pi, np.pi, (n_dt, 1)),
+                         rng.rand(n_dt, 1)], 1)
+    ignored_gt = rng.choice([-1, 0, 1], n_gt, p=[0.2, 0.6, 0.2])
+    ignored_det = rng.choice([-1, 0, 1], n_dt, p=[0.2, 0.6, 0.2])
+    return overlaps, gt, dt, ignored_gt, ignored_det, rng.rand(2, 4) * 100
+
+
+def phase_host_kernels():
+    """Phase 14: the host kernels of the loader and the evaluator
+    (csrc/kitti_native.cpp, built in phase 2) on this host's CPU against
+    their plain versions, at the tolerances of tests/test_native.py and
+    tests/test_native_match.py: the warp of each of phase 11's 32 synthetic
+    KITTI images (1242x375 -> 1280x384) against PIL's (the interior within
+    1.5 uint8 steps at most and half a step on average), the rotated IoU
+    against the numpy clip (1e-4), 12 matching problems against the numpy
+    matcher (equal counts, similarity and scores to rtol 1e-9), and the
+    whole official evaluation of noisy copies of the split's labels, native
+    against plain (rtol 1e-9).  Then the loader's cost per image on this
+    host, one thread, host clock (smoke readings, medians over the 32):
+    PNG decode, the warp (native and plain), the target encoding, and the
+    whole KITTIDataset.__getitem__ with the shipped augmentation."""
+    from monodetr_torch import native
+    from monodetr_torch.config import load_config
+    from monodetr_torch.data.kitti_dataset import KITTIDataset, warp_plain
+    from monodetr_torch.data.kitti_utils import get_affine_transform
+    from monodetr_torch.eval.kitti_eval import eval as ev, kitti_common
+    from monodetr_torch.eval.kitti_eval.rotated_iou import rotate_iou_eval_plain
+
+    t0 = time.time()
+    root = synthetic_kitti(os.path.join(REPO, "tmp", "chip_smoke_kitti"), HANDOFF_IMAGES)
+    cfg = load_config(os.path.join(REPO, "configs", "monodetr.yaml"))
+    ds = KITTIDataset("train", dict(cfg["dataset"], root_dir=root))
+    width, height = (int(v) for v in ds.resolution)
+    tol = (1.0 / 255.0) / ds.std.min() + 1e-4
+    ms = {k: [] for k in ("decode", "warp", "warp plain", "targets", "item")}
+    warp_max = warp_mean = 0.0
+
+    def clock(stage, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        ms[stage].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    for i, name in enumerate(ds.idx_list):
+        idx = int(name)
+        img = ds.get_image(idx)
+        arr = clock("decode", lambda: np.asarray(img, np.uint8))
+        img_size = np.array(img.size)
+        trans, trans_inv = get_affine_transform(img_size / 2, img_size, 0, ds.resolution, inv=1)
+        got = clock("warp", native.warp_affine_normalize, arr, trans_inv, width, height,
+                    ds.mean, ds.std)
+        want = clock("warp plain", warp_plain, img, trans_inv, ds.resolution, ds.mean, ds.std)
+        diff = np.abs(got - want)[4:-4, 4:-4]
+        warp_max, warp_mean = max(warp_max, float(diff.max())), max(warp_mean, float(diff.mean()))
+        clock("targets", lambda: ds._encode_targets(ds.get_label(idx), ds.get_calib(idx), trans,
+                                                    img_size, False, 1))
+        np.random.seed(i)
+        clock("item", ds.__getitem__, i)
+    ok_warp = warp_max < 1.5 * tol and warp_mean < 0.5 * tol
+
+    rng = np.random.RandomState(2)
+    boxes = np.stack([rng.uniform(-10, 10, 40), rng.uniform(0, 60, 40), rng.uniform(1, 5, 40),
+                      rng.uniform(1, 3, 40), rng.uniform(-np.pi, np.pi, 40)], -1)
+    qboxes = boxes[:25] + rng.randn(25, 5) * 0.3
+    iou_err = max(float(np.abs(native.rotated_iou(boxes, qboxes, c)
+                               - rotate_iou_eval_plain(boxes, qboxes, c)).max())
+                  for c in (-1, 0, 1, 2))
+    ok_match = True
+    for seed in range(MATCH_CASES):
+        for compute_fp in (False, True):
+            overlaps, gt, dt, ig, idt, dc = match_case(np.random.RandomState(seed), 14, 18)
+            threshs = [0.0, 0.25, 0.5, 0.75] if compute_fp else [0.0]
+            a = native.match_image(overlaps, dt[:, -1], dt[:, 4], gt[:, 4], dt[:, :4], ig, idt,
+                                   dc, 0, 0.5, np.asarray(threshs), compute_fp, True)
+            b = ev._match_image_np(overlaps, gt, dt, ig, idt, dc, 0, 0.5, threshs, compute_fp,
+                                   True)
+            ok_match &= all(np.array_equal(a[j], b[j]) for j in ((0, 2, 1) if compute_fp
+                                                                  else (0, 2)))
+            ok_match &= not compute_fp or np.allclose(a[3], b[3], rtol=1e-9, atol=0)
+            ok_match &= all(np.allclose(sorted(x), sorted(y), rtol=1e-9, atol=0)
+                            for x, y in zip(a[4], b[4]))
+
+    gt_annos = kitti_common.get_label_annos(ds.label_dir, [int(i) for i in ds.idx_list])
+    dt_annos = []
+    for anno in gt_annos:
+        dt = {k: (v.copy() if isinstance(v, np.ndarray) else v) for k, v in anno.items()}
+        dt["location"] = dt["location"] + rng.randn(*dt["location"].shape) * 0.4
+        dt["score"] = rng.uniform(0.5, 1.0, len(dt["location"]))
+        dt_annos.append(dt)
+    _, ret_native, ap_native = ev.get_official_eval_result(gt_annos, dt_annos, 0)
+    kernels = (ev.rotate_iou_eval, ev._match_image)
+    ev.rotate_iou_eval, ev._match_image = rotate_iou_eval_plain, ev._match_image_np
+    try:
+        _, ret_plain, ap_plain = ev.get_official_eval_result(gt_annos, dt_annos, 0)
+    finally:
+        ev.rotate_iou_eval, ev._match_image = kernels
+    ok_eval = ret_native.keys() == ret_plain.keys() and np.allclose(
+        ap_native, ap_plain, rtol=1e-9, atol=0) and all(
+        np.allclose(ret_native[k], ret_plain[k], rtol=1e-9, atol=0) for k in ret_plain)
+    ok = ok_warp and iou_err <= 1e-4 and ok_match and ok_eval
+    log(f"host kernels: warp vs PIL on {len(ds)} synthetic KITTI images, interior max "
+        f"{warp_max:.4f} / mean {warp_mean:.4f} (< {1.5 * tol:.4f} / {0.5 * tol:.4f}); "
+        f"rotated IoU vs numpy max {iou_err:.2e} (<= 1e-4); match_image vs numpy on "
+        f"{2 * MATCH_CASES} problems equal: {ok_match}; official eval native vs plain equal: "
+        f"{ok_eval} (Car 3d R40 moderate {float(np.ravel(ap_native)[0]):.4f}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("host kernels: a host kernel disagrees with its plain version")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"host kernels: loader cost per image on this host ({os.cpu_count()} cores, one thread, "
+        f"host clock, median of {len(ds)}; smoke readings): PNG decode {med['decode']:.2f} ms, "
+        f"warp native {med['warp']:.2f} ms (plain {med['warp plain']:.2f} ms), target encoding "
+        f"{med['targets']:.2f} ms; the whole KITTIDataset.__getitem__ with the shipped "
+        f"augmentation {med['item']:.2f} ms; phase 14 in {time.time() - t0:.1f} s")
+    return med
+
+
+def torchvision_resnet50(body, gen):
+    """A seeded random state dict in torchvision's ResNet-50 layout: the
+    port backbone's names without `backbone.0.body.`, BN with running
+    statistics and num_batches_tracked, and the fc head."""
+    from monodetr_torch.models.backbone import FrozenBatchNorm2d
+
+    bns = {n for n, m in body.named_modules() if isinstance(m, FrozenBatchNorm2d)}
+    sd = {}
+    for name, t in body.state_dict().items():
+        module, kind = name.rsplit(".", 1)
+        if module in bns:
+            sd[name] = {"weight": torch.rand(t.shape, generator=gen) + 0.5,
+                        "bias": torch.randn(t.shape, generator=gen) * 0.01,
+                        "running_mean": torch.randn(t.shape, generator=gen) * 0.01,
+                        "running_var": torch.rand(t.shape, generator=gen) + 0.5}[kind]
+            if kind == "running_var":
+                sd[module + ".num_batches_tracked"] = torch.tensor(1000)
+        else:
+            sd[name] = torch.randn(t.shape, generator=gen) / np.sqrt(t[0].numel())
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd, bns
+
+
+def folded(state, prefix):
+    """A FrozenBN's (scale, bias) in f64 from its four tensors."""
+    w, b, rm, rv = (state[f"{prefix}.{k}"].double().cpu()
+                    for k in ("weight", "bias", "running_mean", "running_var"))
+    scale = w / (rv + 1e-5).sqrt()
+    return scale, b - rm * scale
+
+
+def convert_checkpoint(args, label):
+    """tools/convert_checkpoint_torch.py args, in a process of its own."""
+    tool = os.path.join(REPO, "tools", "convert_checkpoint_torch.py")
+    proc = subprocess.run([sys.executable, tool] + args, capture_output=True, text=True,
+                          timeout=300)
+    log(f"{label}: tools/convert_checkpoint_torch.py exit {proc.returncode}: "
+        f"{proc.stdout.strip()[-300:]}")
+    if proc.returncode != 0 or "converted" not in proc.stdout:
+        raise RuntimeError(f"{label}: {(proc.stdout + proc.stderr)[-2000:]}")
+
+
+def phase_pretrained_start():
+    """Phase 15: the pretrained start through the port alone.  (1) A seeded
+    random state dict in torchvision's ResNet-50 layout (torch.save),
+    converted by tools/convert_checkpoint_torch.py --torchvision-backbone
+    resnet50; the Trainer that the CLI builds, given it as
+    trainer.pretrain_model, holds before its first step every backbone
+    conv weight bit-equal to the source's and each FrozenBN's folded affine
+    within 1e-6 of the source's; then the CLI trains 1 epoch on phase 12's
+    8 images from it and evaluates (exit 0, the tester's rows, 1 step and 2
+    eval batches of launches).  (2) A reference-layout .pth (a seeded port
+    model's state_dict, FrozenBN statistics drawn as a trained checkpoint's,
+    plus the reference's dead sa_v_proj and label_enc) converted by the
+    same tool and evaluated by the CLI with -e (exit 0, the rows, 1 eval
+    batch of launches); loaded by Tester.load, its detections on one batch
+    of 2 equal those of the model it came from, f32 with TF32 off, within
+    phase 5's tolerance (max |a - b| / (1 + |b|) <= 1e-3), and so do the raw
+    forward outputs.  Returns the two CLI runs' launch counts."""
+    import logging
+
+    import yaml
+
+    from monodetr_torch.eval.tester import Tester
+    from monodetr_torch.models.backbone import FrozenBatchNorm2d
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr, compute_dtype
+    from monodetr_torch.train.trainer import Trainer
+
+    t0 = time.time()
+    logger = logging.getLogger("chip_smoke")
+    workdir = os.path.join(REPO, "tmp", "chip_smoke_pretrained")
+    pretrain = os.path.join(workdir, "resnet50_imagenet_converted")
+    cfg_path, cfg = cli_config(workdir, 1, trainer={"pretrain_model": pretrain + ".pth"})
+    mcfg = cfg["model"]
+
+    # (1) the ImageNet backbone into trainer.pretrain_model
+    model = build_monodetr(mcfg, seed=cfg["random_seed"])
+    body = model.backbone[0].body
+    src, bns = torchvision_resnet50(body, torch.Generator().manual_seed(15))
+    torch.save(src, os.path.join(workdir, "resnet50_imagenet.pth"))
+    convert_checkpoint([os.path.join(workdir, "resnet50_imagenet.pth"), pretrain,
+             "--torchvision-backbone", "resnet50"], "pretrained backbone")
+    model = model.cuda()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    Trainer(cfg["trainer"], model, SetCriterion(mcfg), None, cfg["lr_scheduler"],
+            cfg["optimizer"], logger, "chip_smoke_pretrained", device="cuda",
+            compute_dtype=compute_dtype(mcfg), seed=cfg["random_seed"])
+    state = model.state_dict()
+    prefix = "backbone.0.body."
+    convs = [k for k in src if not k.startswith("fc.") and k.rsplit(".", 1)[0] not in bns]
+    conv_equal = all(torch.equal(state[prefix + k].cpu(), src[k]) for k in convs)
+    bn_err = max(float((a - b).abs().max()) for bn in bns
+                 for a, b in zip(folded(state, prefix + bn), folded(src, bn)))
+    rest_unchanged = all(torch.equal(v, init[k]) for k, v in state.items()
+                         if not k.startswith(prefix))
+    ok = conv_equal and bn_err <= 1e-6 and rest_unchanged and len(convs) == len(bns) == 53
+    log(f"pretrained backbone: before the first step, {len(convs)} conv weights bit-equal to "
+        f"the torchvision state dict: {conv_equal}; {len(bns)} FrozenBN folded affines max "
+        f"|diff| {bn_err:.2e} (<= 1e-6); every other entry as initialised: {rest_unchanged} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("pretrained backbone: the merged backbone differs from its source")
+    del model, init, state
+    totals = dict.fromkeys(KERNELS, 0)
+    want = {k: DEFAULT_PER_STEP.get(k, 0) + 2 * CLI_PER_FORWARD.get(k, 0)
+            for k in DEFAULT_PER_STEP}
+    for k, v in run_cli("pretrained cli train", cfg_path, workdir, [], want).items():
+        totals[k] += v
+
+    # (2) a reference-layout MonoDETR .pth, converted, evaluated with -e
+    gen = torch.Generator().manual_seed(16)
+    source = build_monodetr(mcfg, seed=777)
+    sd = source.state_dict()
+    for bn in (n for n, m in source.named_modules() if isinstance(m, FrozenBatchNorm2d)):
+        for kind, draw in (("weight", lambda t: torch.rand(t.shape, generator=gen) + 0.5),
+                           ("bias", lambda t: torch.randn(t.shape, generator=gen) * 0.1),
+                           ("running_mean", lambda t: torch.randn(t.shape, generator=gen) * 0.1),
+                           ("running_var", lambda t: torch.rand(t.shape, generator=gen) + 0.5)):
+            sd[f"{bn}.{kind}"] = draw(sd[f"{bn}.{kind}"])
+    source.load_state_dict(sd)
+    reference = dict(sd)
+    hidden = mcfg["hidden_dim"]
+    for i in range(mcfg["dec_layers"]):  # dead in the reference, skipped by the converter
+        d = f"depthaware_transformer.decoder.layers.{i}.sa_v_proj"
+        reference[d + ".weight"] = torch.randn(hidden, hidden, generator=gen) * 0.05
+        reference[d + ".bias"] = torch.zeros(hidden)
+    reference["label_enc.weight"] = torch.randn(mcfg["num_classes"] + 1, hidden - 1,
+                                                generator=gen)
+    ref_path = os.path.join(workdir, "monodetr_reference.pth")
+    torch.save({"model_state": reference, "epoch": 195, "best_result": 0.0, "best_epoch": 0},
+               ref_path)
+    converted = os.path.join(workdir, "monodetr_reference_converted")
+    convert_checkpoint([ref_path, converted], "reference checkpoint")
+    cfg["tester"]["checkpoint_path"] = converted + ".pth"
+    eval_path = os.path.join(workdir, "eval.yaml")
+    with open(eval_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    for k, v in run_cli("reference cli -e", eval_path, workdir, ["-e"], CLI_PER_FORWARD).items():
+        totals[k] += v
+
+    tol = 1e-3
+    batch, _ = next(iter(SyntheticLoader(1, 2, 1)))
+    args = [batch[k] for k in ("images", "calibs", "img_sizes")]
+    testers = {}
+    for name, m in (("converted", build_monodetr(mcfg, seed=1)), ("source", source)):
+        testers[name] = Tester(cfg["tester"], m.cuda().float(), None, logger, cfg["trainer"],
+                               "chip_smoke_pretrained", device="cuda")
+    testers["converted"].load(converted + ".pth")
+    dets = {name: t.predict(*args) for name, t in testers.items()}
+    with torch.no_grad():
+        inputs = [torch.from_numpy(a).cuda() for a in args]
+        raw = {name: t.model(*inputs) for name, t in testers.items()}
+    torch.cuda.synchronize()
+    errs = {"detections": float((np.abs(dets["converted"] - dets["source"])
+                                 / (1 + np.abs(dets["source"]))).max())}
+    for k in ("pred_logits", "pred_boxes", "pred_depth", "pred_3d_dim", "pred_angle"):
+        a, b = raw["converted"][k], raw["source"][k]
+        errs[k] = ((a - b).abs() / (1 + b.abs())).max().item()
+    ok = dets["converted"].shape == (2, 50, 37) and np.isfinite(dets["converted"]).all() and all(
+        e <= tol for e in errs.values())
+    log("reference checkpoint: Tester.load of the converted .pth against the model it came "
+        "from, f32 B=2 384x1280: " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("reference checkpoint: the converted model's detections differ")
+    del testers, source, raw
+    torch.cuda.empty_cache()
+    log(f"phase 15 (pretrained start) in {time.time() - t0:.1f} s")
+    return {k: v for k, v in totals.items() if v}
+
+
 def phase_learning_loop(add):
-    """Phases 11-13; `add` takes each one's launch counts."""
+    """Phases 11-15; `add` takes the launch counts of each main-path run."""
     t0 = time.time()
     add(phase_handoff())
     add(phase_cli())
     add(phase_clamp())
-    log(f"phases 11-13 (handoff, CLI, clamp) in {time.time() - t0:.1f} s")
+    phase_host_kernels()
+    add(phase_pretrained_start())
+    log(f"phases 11-15 (handoff, CLI, clamp, host kernels, pretrained start) in "
+        f"{time.time() - t0:.1f} s")
 
 
 def main(argv):

@@ -9,12 +9,20 @@ bound with ctypes: every pointer and the CUDA stream pass as `c_void_p`, and
 every entry point returns `cudaGetLastError()` after its launch, which
 `check()` turns into an exception.  There is no fallback: without nvcc the
 build raises.
+
+`host_library()` does the same for the loader's and the evaluator's host
+kernels (`csrc/kitti_native.cpp`, which the CUDA build does not take): g++
+with `-march=native` into `build/monodetr_torch/host-<hash>/`, the hash over
+the source, the flags, the compiler's version and this CPU's flag set, so
+a build directory copied to another host is rebuilt there.  A failed
+build raises with the compiler's output.
 """
 
 import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +35,10 @@ LIB_NAME = "libmonodetr_kernels.so"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_SRC = SRC_DIR / "kitti_native.cpp"
+HOST_LIB_NAME = "libkitti_native.so"
+HOST_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std=c++17")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +62,21 @@ SIGNATURES = {
     "mdt_attention_keep_mask": (_P, _I, _I, _I, _P, _U, _P),
     "mdt_lap": (_P, _P, _P, _I, _I, _P),
     "mdt_lap_probe": (_P, _I, _P),
+}
+_D = ctypes.c_double
+_L = ctypes.c_longlong
+# host entry point -> argument types (see csrc/kitti_native.cpp); pointers
+# are typed, so numpy's `ctypes.data_as` pointers pass as they are
+HOST_SIGNATURES = {
+    "warp_affine_normalize": (ctypes.POINTER(ctypes.c_uint8), _I, _I, ctypes.POINTER(_D),
+                              ctypes.POINTER(_F), _I, _I, ctypes.POINTER(_F),
+                              ctypes.POINTER(_F)),
+    "rotated_iou": (ctypes.POINTER(_D), _I, ctypes.POINTER(_D), _I, _I, ctypes.POINTER(_F)),
+    "match_image": (ctypes.POINTER(_D), _I, _I) + (ctypes.POINTER(_D),) * 4
+                   + (ctypes.POINTER(_L),) * 2 + (ctypes.POINTER(_D), _I, _I, _D,
+                                                  ctypes.POINTER(_D), _I, _I, _I)
+                   + (ctypes.POINTER(_L),) * 3 + (ctypes.POINTER(_D),) * 2
+                   + (ctypes.POINTER(_L),),
 }
 
 
@@ -126,6 +153,75 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.mdt_error_string.argtypes = [ctypes.c_int]
     lib.mdt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("monodetr_torch: g++ not found on PATH; the host kernels are "
+                           "built from monodetr_torch/csrc/kitti_native.cpp at first use")
+    return cxx
+
+
+def cpu_flags() -> str:
+    """This CPU's feature flags (what -march=native compiles for)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.machine() + " " + platform.processor()
+
+
+def host_digest(src: Path, flags, cxx: str) -> str:
+    """The host library's build key: source, flags, compiler version, CPU."""
+    version = subprocess.run([cxx, "--version"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True).stdout
+    h = hashlib.sha256(" ".join(flags).encode())
+    for part in (src.read_bytes(), version.encode(), cpu_flags().encode()):
+        h.update(b"\0" + part)
+    return h.hexdigest()[:16]
+
+
+def build_host(src: Path = None, root: Path = None) -> Path:
+    """Compile the host kernels (HOST_SRC, or `src`) under BUILD_ROOT (or
+    `root`) if this build key has no library yet; return the library's
+    path.  Built in a temporary directory and renamed into place, as
+    `build()` does."""
+    src = HOST_SRC if src is None else Path(src)
+    root = BUILD_ROOT if root is None else Path(root)
+    cxx = _cxx()
+    out_dir = root / f"host-{host_digest(src, HOST_FLAGS, cxx)}"
+    lib = out_dir / HOST_LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        cmd = [cxx, *HOST_FLAGS, "-o", str(work / HOST_LIB_NAME), str(src)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        (work / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout)
+        os.replace(work / "build.log", out_dir / "build.log")
+        if proc.returncode != 0:
+            raise RuntimeError(f"monodetr_torch: {' '.join(cmd)} failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-4000:]}")
+        os.replace(work / HOST_LIB_NAME, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """The loaded host kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build_host()))
+    for name, argtypes in HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = None
     return lib
 
 

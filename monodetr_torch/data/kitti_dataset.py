@@ -41,6 +41,22 @@ from .kitti_utils import (
 NUM_HEADING_BIN = 12
 
 
+def warp_plain(img, trans_inv, resolution, mean, std):
+    """The plain version of native.warp_affine_normalize: PIL's bilinear
+    affine warp of `img` (a PIL image) to `resolution` (W, H), then /255
+    and the ImageNet normalization, NHWC.  PIL rounds the warped image to
+    uint8 before the normalization (the native kernel does not) and treats
+    the border's samples differently."""
+    img = img.transform(
+        tuple(int(v) for v in resolution),
+        method=Image.AFFINE,
+        data=tuple(np.asarray(trans_inv).reshape(-1).tolist()),
+        resample=Image.BILINEAR,
+    )
+    img = np.array(img).astype(np.float32) / 255.0
+    return (img - mean) / std  # NHWC stays
+
+
 class KITTIDataset:
     def __init__(self, split: str, cfg: Dict[str, Any]):
         self.root_dir = cfg.get("root_dir")
@@ -173,23 +189,13 @@ class KITTIDataset:
         trans, trans_inv = get_affine_transform(
             center, crop_size, 0, self.resolution, inv=1
         )
-        if native.available():
-            # fused C++ warp + normalize (releases the GIL -> the threaded
-            # loader parallelizes across images)
-            img = native.warp_affine_normalize(
-                np.asarray(img, np.uint8), trans_inv,
-                int(self.resolution[0]), int(self.resolution[1]),
-                self.mean, self.std,
-            )
-        else:
-            img = img.transform(
-                tuple(self.resolution.tolist()),
-                method=Image.AFFINE,
-                data=tuple(trans_inv.reshape(-1).tolist()),
-                resample=Image.BILINEAR,
-            )
-            img = np.array(img).astype(np.float32) / 255.0
-            img = (img - self.mean) / self.std  # NHWC stays
+        # fused C++ warp + normalize (releases the GIL -> the threaded
+        # loader parallelizes across images)
+        img = native.warp_affine_normalize(
+            np.asarray(img, np.uint8), trans_inv,
+            int(self.resolution[0]), int(self.resolution[1]),
+            self.mean, self.std,
+        )
 
         info = {
             "img_id": index,

@@ -206,8 +206,11 @@ def d3_box_overlap(boxes, qboxes, criterion=-1):
 def _match_image(overlaps, gt_data, dt_data, ignored_gt, ignored_det,
                  dc_bboxes, metric, min_overlap, threshs, compute_fp,
                  compute_aos):
+    """One image's matching by the host kernel (monodetr_torch/csrc/
+    kitti_native.cpp:match_image); an image without ground truth or
+    detections takes the numpy path, as the JAX package's evaluator does."""
     from ... import native
-    if native.available() and len(gt_data) and len(dt_data):
+    if len(gt_data) and len(dt_data):
         return native.match_image(
             np.asarray(overlaps, np.float64),
             dt_data[:, -1], dt_data[:, 4],
@@ -228,10 +231,11 @@ def _match_image_np(overlaps, gt_data, dt_data, ignored_gt, ignored_det,
                     compute_aos):
     """TP/FP/FN/similarity for one image at T thresholds simultaneously.
 
-    Dispatches to the native C++ kernel when built (match_image in
-    native/kitti_native.cpp, the equivalent of the reference's numba
-    compute_statistics_jit); the vectorized numpy path below is the
-    fallback and the test oracle.
+    The plain version of the host kernel's match_image
+    (monodetr_torch/csrc/kitti_native.cpp, the equivalent of the
+    reference's numba compute_statistics_jit), which the tests hold it to;
+    `_match_image` takes it only for an image without ground truth or
+    detections.
 
     Numpy re-derivation of the reference's sequential dt scan
     (compute_statistics_jit, eval.py:267-316): for each gt in order, the

@@ -5,8 +5,9 @@ convex polygon intersection of rotated boxes) with a fully vectorized
 Sutherland–Hodgman clip over all N x M pairs at once: clipping one rectangle
 (4 vertices, padded to a fixed 8-vertex buffer) against the 4 half-planes of
 the other, then the shoelace area.  No GPU, no JIT — a handful of [P, 8]
-array ops.  When the native C++ extension is built (native/), it is used
-instead for large problem sizes.
+array ops.  The evaluator calls the host kernel (`rotate_iou_eval`,
+monodetr_torch/csrc/kitti_native.cpp); the numpy version
+(`rotate_iou_eval_plain`) is its plain version, which the tests hold it to.
 
 Box format: [cx, cz, l, w, ry] (BEV footprint; KITTI camera coords x-right,
 z-forward, yaw around y).
@@ -119,15 +120,17 @@ def rotated_box_intersection(boxes1, boxes2):
 
 
 def rotate_iou_eval(boxes, qboxes, criterion=-1):
-    """Reference rotate_iou_gpu_eval semantics over [N,5] x [M,5].
+    """Reference rotate_iou_gpu_eval semantics over [N,5] x [M,5], by the
+    host kernel (monodetr_torch/csrc/kitti_native.cpp:rotated_iou)."""
+    from ... import native
 
-    Uses the native C++ kernel when built (native/kitti_native.cpp),
-    otherwise the vectorized numpy path below."""
+    return native.rotated_iou(boxes, qboxes, criterion)
+
+
+def rotate_iou_eval_plain(boxes, qboxes, criterion=-1):
+    """rotate_iou_eval's plain version: the vectorized numpy clip."""
     boxes = np.asarray(boxes, np.float64)
     qboxes = np.asarray(qboxes, np.float64)
-    from ... import native
-    if native.available():
-        return native.rotated_iou(boxes, qboxes, criterion)
     inter = rotated_box_intersection(boxes, qboxes)
     area1 = (boxes[:, 2] * boxes[:, 3])[:, None]
     area2 = (qboxes[:, 2] * qboxes[:, 3])[None, :]

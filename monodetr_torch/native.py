@@ -1,100 +1,63 @@
-"""ctypes bindings for the native host kernels (native/kitti_native.cpp).
+"""ctypes bindings for the host kernels of the loader and the evaluator
+(csrc/kitti_native.cpp), built from source at first use by
+`_build.host_library()` into build/monodetr_torch/host-<hash>/.
 
-The .so is optional: `available()` is False until `native/build.sh` has run,
-and every caller has a pure-python fallback (PIL warp in the dataset, numpy
-rotated IoU in the evaluator).  ctypes releases the GIL during the calls, so
-the threaded loader gets real parallelism out of the C++ warp.
+There is no quiet fallback: a failed build raises with the compiler's
+output.  The plain versions (the PIL warp, `data/kitti_dataset.py:
+warp_plain`; the numpy rotated IoU, `eval/kitti_eval/rotated_iou.py:
+rotate_iou_eval_plain`; the numpy matcher, `eval/kitti_eval/eval.py:
+_match_image_np`) are what the tests hold these kernels to.  ctypes releases
+the GIL during the calls, so the threaded loader gets real parallelism out
+of the C++ warp.
 """
 
 import ctypes
-import os
 
 import numpy as np
 
-_LIB = None
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "native", "libkitti_native.so",
-)
+from . import _build
 
 
-def _load():
-    global _LIB
-    if _LIB is None and os.path.exists(_LIB_PATH):
-        lib = ctypes.CDLL(_LIB_PATH)
-        lib.warp_affine_normalize.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_double),
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-        ]
-        lib.rotated_iou.argtypes = [
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_float),
-        ]
-        _LIB = lib
-    return _LIB
-
-
-def available() -> bool:
-    return _load() is not None
+def _ptr(a, t):
+    return a.ctypes.data_as(ctypes.POINTER(t))
 
 
 def warp_affine_normalize(src: np.ndarray, trans_inv: np.ndarray,
                           dst_w: int, dst_h: int,
                           mean: np.ndarray, std: np.ndarray) -> np.ndarray:
     """uint8 [H, W, 3] -> float32 [dst_h, dst_w, 3] warped + normalized."""
-    lib = _load()
+    lib = _build.host_library()
     src = np.ascontiguousarray(src, np.uint8)
     inv = np.ascontiguousarray(trans_inv, np.float64)
     mean = np.ascontiguousarray(mean, np.float32)
     std = np.ascontiguousarray(std, np.float32)
+    if src.ndim != 3 or src.shape[2] != 3 or inv.size != 6 or mean.size != 3 or std.size != 3:
+        raise ValueError(f"warp_affine_normalize: src {src.shape} (want [H, W, 3]), "
+                         f"trans_inv {inv.shape}, mean {mean.shape}, std {std.shape}")
     out = np.empty((dst_h, dst_w, 3), np.float32)
     lib.warp_affine_normalize(
-        src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        src.shape[0], src.shape[1],
-        inv.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        dst_h, dst_w,
-        mean.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        std.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        _ptr(src, ctypes.c_uint8), src.shape[0], src.shape[1],
+        _ptr(inv, ctypes.c_double),
+        _ptr(out, ctypes.c_float), dst_h, dst_w,
+        _ptr(mean, ctypes.c_float), _ptr(std, ctypes.c_float),
     )
     return out
 
 
 def rotated_iou(boxes: np.ndarray, qboxes: np.ndarray,
                 criterion: int = -1) -> np.ndarray:
-    lib = _load()
+    """[N, 5] x [M, 5] BEV boxes (cx, cz, l, w, ry) -> float32 [N, M]."""
+    lib = _build.host_library()
     boxes = np.ascontiguousarray(boxes, np.float64)
     qboxes = np.ascontiguousarray(qboxes, np.float64)
+    if boxes.ndim != 2 or qboxes.ndim != 2 or boxes.shape[1] != 5 or qboxes.shape[1] != 5:
+        raise ValueError(f"rotated_iou: boxes {boxes.shape} and {qboxes.shape}, want [N, 5]")
     n, m = len(boxes), len(qboxes)
     out = np.empty((n, m), np.float32)
     if n and m:
-        lib.rotated_iou(
-            boxes.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n,
-            qboxes.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), m,
-            criterion, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        )
+        lib.rotated_iou(_ptr(boxes, ctypes.c_double), n, _ptr(qboxes, ctypes.c_double), m,
+                        criterion, _ptr(out, ctypes.c_float))
     return out
-
-
-def _setup_match(lib):
-    import ctypes
-
-    lib.match_image.argtypes = [
-        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
-        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-        ctypes.c_int, ctypes.c_double,
-        ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-        ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_double),
-        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong),
-    ]
 
 
 def match_image(overlaps, dt_scores, dt_alphas, gt_alphas, dt_bboxes,
@@ -103,13 +66,7 @@ def match_image(overlaps, dt_scores, dt_alphas, gt_alphas, dt_bboxes,
     """C++ evaluator matching (per image, all thresholds).
 
     Returns (tp [T], fp [T], fn [T], sim [T], tp_scores: list of lists)."""
-    import ctypes
-
-    lib = _load()
-    if not hasattr(lib, "_match_setup"):
-        _setup_match(lib)
-        lib._match_setup = True
-
+    lib = _build.host_library()
     D, G = overlaps.shape if overlaps.size else (len(dt_scores), len(ignored_gt))
     T = len(threshs)
     overlaps = np.ascontiguousarray(overlaps, np.float64)
@@ -129,21 +86,18 @@ def match_image(overlaps, dt_scores, dt_alphas, gt_alphas, dt_bboxes,
     tp_scores = np.zeros((T, max(G, 1)), np.float64)
     tp_counts = np.zeros(T, np.int64)
 
-    def p(a, t):
-        return a.ctypes.data_as(ctypes.POINTER(t))
-
-    c = ctypes
+    d, q = ctypes.c_double, ctypes.c_longlong
     lib.match_image(
-        p(overlaps, c.c_double), D, G,
-        p(dt_scores, c.c_double), p(dt_alphas, c.c_double),
-        p(gt_alphas, c.c_double), p(dt_bboxes, c.c_double),
-        p(ignored_gt, c.c_longlong), p(ignored_det, c.c_longlong),
-        p(dc_bboxes, c.c_double), len(dc_bboxes),
+        _ptr(overlaps, d), D, G,
+        _ptr(dt_scores, d), _ptr(dt_alphas, d),
+        _ptr(gt_alphas, d), _ptr(dt_bboxes, d),
+        _ptr(ignored_gt, q), _ptr(ignored_det, q),
+        _ptr(dc_bboxes, d), len(dc_bboxes),
         metric, min_overlap,
-        p(threshs, c.c_double), T,
+        _ptr(threshs, d), T,
         int(compute_fp), int(compute_aos),
-        p(tp, c.c_longlong), p(fp, c.c_longlong), p(fn, c.c_longlong),
-        p(sim, c.c_double), p(tp_scores, c.c_double), p(tp_counts, c.c_longlong),
+        _ptr(tp, q), _ptr(fp, q), _ptr(fn, q),
+        _ptr(sim, d), _ptr(tp_scores, d), _ptr(tp_counts, q),
     )
     scores = [tp_scores[t, : tp_counts[t]].tolist() for t in range(T)]
     return tp, fp, fn, sim, scores

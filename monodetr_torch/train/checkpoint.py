@@ -4,37 +4,20 @@ reference save_helper.py:13-28): a pickle of
     {epoch, model_state, optimizer_state, best_result, best_epoch}
 
 with numpy leaves.  `model_state` is the flax parameter tree, made from the
-model's state_dict by tools/convert_checkpoint.py:convert_state_dict (numpy
-only) and read back by convert.params_from_jax; `optimizer_state` is a
+model's state_dict by convert.convert_state_dict (numpy only) and read back
+by convert.params_from_jax; `optimizer_state` is a
 plain dict {step, m, v} whose moment trees have the same layout (the
 FrozenBN entries and the frozen stem and layer1, which have no moments,
 hold zeros).  So the JAX package can load what the port saves.
 """
 
-import importlib.util
 import os
 import pickle
-from pathlib import Path
 
 import numpy as np
 
-from ..convert import LEARNED_POSITION, params_from_jax
+from ..convert import LEARNED_POSITION, convert_state_dict, params_from_jax
 from ..models.backbone import BN_EPS, FrozenBatchNorm2d
-
-_CONVERTER = Path(__file__).resolve().parents[2] / "tools" / "convert_checkpoint.py"
-
-
-def _convert_state_dict():
-    """tools/convert_checkpoint.py:convert_state_dict (the script has no
-    package; it is loaded from its path once)."""
-    name = "monodetr_torch_convert_checkpoint"
-    mod = globals().get("_converter_module")
-    if mod is None:
-        spec = importlib.util.spec_from_file_location(name, _CONVERTER)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        globals()["_converter_module"] = mod
-    return mod.convert_state_dict
 
 
 def _layout(model):
@@ -77,7 +60,7 @@ def to_jax_tree(model, values=None):
         sd = dict(sd, **{f"{name}.{extra}{k[len(name) + 2:]}": v
                          for name in UNCALLED_EXTRA_HEADS
                          for k, v in sd.items() if k.startswith(name + ".0.")})
-    tree = _convert_state_dict()(sd, **layout)
+    tree = convert_state_dict(sd, **layout)
     if layout["two_stage"]:
         for name in UNCALLED_EXTRA_HEADS:
             del tree["params"][f"{name}_{extra}"]

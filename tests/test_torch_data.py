@@ -6,7 +6,11 @@ port's tools (tools/*_torch.py: the CLI and the validation tools, which of
 the tests take only tests/synthetic_kitti.py, itself numpy and PIL)
 refuses any import of jax, flax or monodetr_tpu and any path built from
 the string "monodetr_tpu" (a `file.py:line` citation of a counterpart, as
-in a docstring, is fine).  The port's KITTIDataset gives the
+in a docstring, is fine), and any load by path (importlib's
+spec_from_file_location and SourceFileLoader, runpy.run_path, ctypes'
+CDLL and LoadLibrary) of a file that is not the port's own: a path named
+by its strings must be one of monodetr_torch/** or tools/*_torch.py, or
+come from monodetr_torch/_build.py's build functions (build/).  The port's KITTIDataset gives the
 JAX package's arrays for the same numpy seed, with augmentation on (train)
 and off (val), and its DataLoader the same batches.  The decode's
 calibration loads without the dataset's image libraries."""
@@ -87,10 +91,102 @@ def jax_package_uses(source):
     return found
 
 
+# loaders by path -> the index of their path argument
+BY_PATH = {"spec_from_file_location": 1, "SourceFileLoader": 1, "run_path": 0, "CDLL": 0,
+           "PyDLL": 0, "LoadLibrary": 0, "load_library": 0}
+# the port's own files, as the strings of a path spell them
+PORT_PATH = re.compile(r"(^|/)(monodetr_torch(/\w+)*/\w+\.py|tools/\w+_torch\.py)$")
+# monodetr_torch/_build.py's functions that return what it built under build/
+BUILD_FUNCTIONS = ("build", "build_host")
+
+
+def _call_name(node):
+    fn = node.func
+    return fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+
+
+def _path_parts(expr, assigned, depth=0):
+    """The string constants of a path expression and the names of the
+    functions it calls, following names to what the module assigns them
+    (a few levels deep)."""
+    strings, calls = [], set()
+    nodes = [n for n in ast.walk(expr) if hasattr(n, "lineno")]
+    for node in sorted(nodes, key=lambda n: (n.lineno, n.col_offset)):  # source order
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            strings.append(node.value)
+        elif isinstance(node, ast.Call):
+            calls.add(_call_name(node))
+        elif isinstance(node, ast.Name) and node.id in assigned and depth < 4:
+            for value in assigned[node.id]:
+                s, c = _path_parts(value, assigned, depth + 1)
+                strings += s
+                calls |= c
+    return strings, calls
+
+
+def by_path_loads(source):
+    """(line, what) for every load by path whose path is not the port's
+    own: its strings, joined by "/", must spell a port file, or it must
+    come from one of _build.py's BUILD_FUNCTIONS."""
+    tree = ast.parse(source)
+    assigned = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name):
+                    assigned.setdefault(target.id, []).append(node.value)
+    found = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call) or _call_name(node) not in BY_PATH:
+            continue
+        i = BY_PATH[_call_name(node)]
+        args = list(node.args) + [k.value for k in node.keywords]
+        if len(args) <= i:
+            found.append((node.lineno, f"{_call_name(node)} without a path"))
+            continue
+        strings, calls = _path_parts(args[i], assigned)
+        path = "/".join(x.strip("/") for x in strings if x.strip("/"))
+        if not (PORT_PATH.search(path) or calls & set(BUILD_FUNCTIONS)):
+            found.append((node.lineno, f"{_call_name(node)}({path or '?'})"))
+    return found
+
+
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
 def test_port_module_uses_nothing_of_the_jax_package(path):
     with open(path) as f:
-        assert jax_package_uses(f.read()) == []
+        source = f.read()
+    assert jax_package_uses(source) == []
+    assert by_path_loads(source) == []
+
+
+@pytest.mark.parametrize("source", [
+    "import importlib.util, os\n"
+    "spec = importlib.util.spec_from_file_location(\n"
+    "    'm', os.path.join(os.path.dirname(__file__), '..', 'tools', 'convert_checkpoint.py'))",
+    "import importlib.util\nfrom pathlib import Path\n"
+    "_CONVERTER = Path(__file__).resolve().parents[2] / 'tools' / 'convert_checkpoint.py'\n"
+    "spec = importlib.util.spec_from_file_location('m', _CONVERTER)",
+    "import ctypes, os\n"
+    "lib = ctypes.CDLL(os.path.join(os.path.dirname(__file__), '..', 'native', "
+    "'libkitti_native.so'))",
+    "import ctypes\n_LIB_PATH = 'native/libkitti_native.so'\nlib = ctypes.cdll.LoadLibrary(_LIB_PATH)",
+    "import runpy\nrunpy.run_path('tools/train_val.py', run_name='__main__')",
+    "from importlib.machinery import SourceFileLoader\n"
+    "m = SourceFileLoader('m', 'monodetr_tpu/native.py').load_module()",
+    "import ctypes\ndef load(path):\n    return ctypes.CDLL(path)",
+])
+def test_the_walk_finds_a_load_by_path(source):
+    assert len(by_path_loads(source)) == 1
+
+
+def test_the_walk_passes_the_ports_own_loads():
+    source = ("import ctypes, os, runpy\n"
+              "lib = ctypes.CDLL(str(build()))\n"
+              "host = ctypes.CDLL(str(_build.build_host()))\n"
+              "tool = os.path.join(REPO, 'tools', 'train_val_torch.py')\n"
+              "runpy.run_path(tool, run_name='__main__')\n"
+              "runpy.run_path(os.path.join(REPO, 'monodetr_torch', 'parallel', 'dryrun.py'))\n")
+    assert by_path_loads(source) == []
 
 
 @pytest.mark.parametrize("source", [

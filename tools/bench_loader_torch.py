@@ -139,7 +139,7 @@ def main(argv=None):
                     help="time the trainer over the split for N epochs instead")
     args = ap.parse_args(argv)
 
-    from monodetr_torch import native
+    from monodetr_torch import _build
     from monodetr_torch.data.kitti_dataset import KITTIDataset
     from monodetr_torch.data.loader import DataLoader
     from synthetic_kitti import make_synthetic_kitti
@@ -151,7 +151,7 @@ def main(argv=None):
 
     ds = KITTIDataset("train", {"root_dir": args.root, "writelist": ["Car"],
                                 "aug_pd": True, "aug_crop": True})
-    print(f"native warp: {native.available()}; dataset: {len(ds)} images; "
+    print(f"host kernels: {_build.build_host().relative_to(REPO)}; dataset: {len(ds)} images; "
           f"host cpus: {os.cpu_count()}")
     if args.trainer_epochs:
         bench_trainer(args, ds, DataLoader)
