@@ -1,6 +1,7 @@
 """Smoke run of monodetr_torch on one CUDA card.
 
-    python3 chip_smoke.py [--decoder-msda-only | --lap-only | --learning-loop-only]
+    python3 chip_smoke.py [--decoder-msda-only | --lap-only | --learning-loop-only |
+                           --bench-only]
 
 Phases, one line each (or a few), and any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -112,9 +113,18 @@ Phases, one line each (or a few), and any failure exits non-zero:
      of the CLI from it as trainer.pretrain_model with its evaluation;
      then a reference-layout MonoDETR .pth converted by the same tool,
      evaluated by the CLI with -e, and its detections on one batch held to
-     those of the model it came from (f32, TF32 off, phase 5's tolerance).
+     those of the model it came from (f32, TF32 off, phase 5's tolerance);
+ 16. the bench (`python bench_torch.py`, monodetr_torch/bench.py), each run
+     a process of its own: the default environment, then the stress
+     configuration (BENCH_BACKBONE=resnet101 BENCH_H=768 BENCH_W=2560
+     BENCH_BS=2 BENCH_REMAT=1); each must exit 0, print bench.py's JSON
+     line (its keys in its order) as its last line, with 3 positive runs,
+     flops_per_img > 0 and 0 < mfu < 1, and launch the default path's
+     kernels 40 steps over (4 warm-up, 3 windows of 12) and the LAP once
+     more (the FLOP count's step through the plain versions); both lines
+     are printed as they came.
 The kernel report (JSON) sums each kernel's launches over the main-path
-runs of phases 5-15 and fails if one of them is 0; it is the second-to-last
+runs of phases 5-16 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
 least time the card could take for the same work at the timed shape
 (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s and its
@@ -131,8 +141,9 @@ backward at 0), which gives dropout's share of its time.  The last line is
 
 With --decoder-msda-only the run is phases 1 and 2 and what phases 3 and 4
 do for kernels 2 and 7, with --lap-only phases 1 and 2 and the LAP
-part of phase 4, and with --learning-loop-only phases 1, 2 and 11-15;
-none prints the report or the last line.  Each is a
+part of phase 4, with --learning-loop-only phases 1, 2 and 11-15, and
+with --bench-only phases 1, 2 and 16; none prints the report or the last
+line.  Each is a
 minute or less for those kernels' times, e.g. of two checkouts one after
 the other on one card (the wrappers they call are `ms_deform_attn_sep`,
 `ms_deform_attn_dense_fused` and their `_bwd`, and `lap_solve`; --lap-only
@@ -1609,18 +1620,20 @@ LAUNCH_REPORT = (
     "import chip_smoke; print('launches ' + json.dumps(chip_smoke.read_launches()))")
 
 
-def run_counted(tool, args, cwd, timeout):
-    """`python tool args` in a process of its own, from `cwd`, and that
-    process's launches of the kernels (KERNELS' wrappers): (exit code,
-    launch counts or None, output tail)."""
+def run_counted(tool, args, cwd, timeout, env=None):
+    """`python tool args` in a process of its own, from `cwd` (with `env`),
+    and that process's launches of the kernels (KERNELS' wrappers): (exit
+    code, launch counts or None, output tail, the tool's own stdout lines)."""
     code = LAUNCH_REPORT % (REPO, tool, list(args), tool)
     proc = subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True,
-                          text=True, timeout=timeout)
-    counts = None
+                          text=True, timeout=timeout, env=env)
+    counts, lines = None, []
     for line in proc.stdout.splitlines():
         if line.startswith("launches "):
             counts = {k: v for k, v in json.loads(line[len("launches "):]).items() if v}
-    return proc.returncode, counts, (proc.stdout + proc.stderr)[-2000:]
+        else:
+            lines.append(line)
+    return proc.returncode, counts, (proc.stdout + proc.stderr)[-2000:], lines
 
 
 CLI_TOOL = os.path.join(REPO, "tools", "train_val_torch.py")
@@ -1667,8 +1680,8 @@ def run_cli(label, cfg_path, workdir, extra, want):
 
     data = os.path.join(workdir, "outputs", "overfit", "outputs", "data")
     shutil.rmtree(data, ignore_errors=True)
-    rc, counts, tail = run_counted(CLI_TOOL, ["--config", cfg_path, "--device", "cuda"] + extra,
-                                   workdir, 600)
+    rc, counts, tail, _ = run_counted(CLI_TOOL, ["--config", cfg_path, "--device", "cuda"]
+                                      + extra, workdir, 600)
     txts = sorted(os.listdir(data)) if os.path.isdir(data) else []
     rows = [len(open(os.path.join(data, t)).read().splitlines()) for t in txts]
     ok = rc == 0 and counts == want and len(txts) == 8 and set(rows) == {50}
@@ -2032,6 +2045,53 @@ def phase_pretrained_start():
     return {k: v for k, v in totals.items() if v}
 
 
+BENCH_TOOL = os.path.join(REPO, "bench_torch.py")
+# each run's environment; the stress configuration as bench.py:61-62 spells it
+BENCH_RUNS = (("default", {}), ("stress", {"BENCH_BACKBONE": "resnet101", "BENCH_H": "768",
+                                           "BENCH_W": "2560", "BENCH_BS": "2",
+                                           "BENCH_REMAT": "1"}))
+
+
+def phase_bench():
+    """Phase 16: `python bench_torch.py` in a process of its own for each
+    of BENCH_RUNS: exit 0, bench.py's JSON line as the last stdout line
+    (its keys in its order, 3 positive runs, flops_per_img > 0, 0 < mfu <
+    1), and the default path's launches over the bench's warm-up and
+    timed steps, plus the LAP of the FLOP count's step (its other kernels
+    run their plain versions).  Prints each JSON line on a line of its own;
+    returns the launch counts."""
+    from monodetr_torch import bench
+
+    t0 = time.time()
+    steps = bench.WARMUP_STEPS + bench.WINDOWS * bench.WINDOW_STEPS
+    want = {k: steps * v + (k == "lap") for k, v in DEFAULT_PER_STEP.items()}
+    totals = dict.fromkeys(KERNELS, 0)
+    for label, env in BENCH_RUNS:
+        t1 = time.time()
+        rc, counts, tail, lines = run_counted(BENCH_TOOL, [], REPO, 600,
+                                              env=dict(os.environ, **env))
+        try:
+            line = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            line = {}
+        runs = line.get("runs", [])
+        ok = (rc == 0 and list(line) == list(bench.KEYS) and len(runs) == bench.WINDOWS
+              and all(r > 0 for r in runs) and line["flops_per_img"] > 0
+              and 0 < line["mfu"] < 1 and counts == want)
+        log(f"bench {label} {env or '(default environment)'}: bench_torch.py exit {rc}, "
+            f"launches {counts} (want {want}), {time.time() - t1:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"bench {label}: {tail}")
+        log(next((t for t in tail.splitlines() if t.startswith("bench_torch: ")),
+                 "bench_torch: (its stderr line is not in the output's tail)"))
+        log(lines[-1])
+        for k, v in counts.items():
+            totals[k] += v
+    log(f"phase 16 (bench) in {time.time() - t0:.1f} s")
+    return {k: v for k, v in totals.items() if v}
+
+
 def phase_learning_loop(add):
     """Phases 11-15; `add` takes the launch counts of each main-path run."""
     t0 = time.time()
@@ -2045,9 +2105,10 @@ def phase_learning_loop(add):
 
 
 def main(argv):
-    if argv not in ([], ["--decoder-msda-only"], ["--lap-only"], ["--learning-loop-only"]):
+    if argv not in ([], ["--decoder-msda-only"], ["--lap-only"], ["--learning-loop-only"],
+                    ["--bench-only"]):
         sys.exit("usage: python3 chip_smoke.py [--decoder-msda-only | --lap-only | "
-                 f"--learning-loop-only], not {argv}")
+                 f"--learning-loop-only | --bench-only], not {argv}")
     phase_environment()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2057,6 +2118,9 @@ def main(argv):
         return
     if argv == ["--learning-loop-only"]:
         phase_learning_loop(lambda counts: None)
+        return
+    if argv == ["--bench-only"]:
+        phase_bench()
         return
     if argv:
         phase_forward_kernels([n for n in FORWARD_KERNELS if n in LOC_KERNELS])
@@ -2115,6 +2179,7 @@ def main(argv):
     add(phase_dp_gloo())
     log(f"phase 10 (data parallel) in {time.time() - t0:.1f} s")
     phase_learning_loop(add)
+    add(phase_bench())
     idle = [k for k, v in totals.items() if v == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")

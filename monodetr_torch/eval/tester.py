@@ -65,8 +65,9 @@ def load_checkpoint(filename, logger=None):
 class Tester:
     def __init__(self, cfg, model, dataloader, logger, train_cfg=None,
                  model_name="monodetr", device="cuda"):
-        """`model` is a monodetr_torch MonoDETR already on `device` in its
-        compute dtype."""
+        """`model` is a monodetr_torch MonoDETR already on `device`, with
+        f32 parameters; the caller runs `test` / `inference` under
+        torch.autocast in the compute dtype (checkpoints load as f32)."""
         self.cfg = cfg
         self.model = model
         self.dataloader = dataloader

@@ -21,8 +21,8 @@ ops/modules/ms_deform_attn.py:69-162).
     through a kernel (ops/msda_sep.py, ops/msda_dense.py);
   - "dense": exact semantics in plain PyTorch on every device (the JAX
     package's XLA path, ops/msda_dense.py:ms_deform_attn_dense);
-  - "gather": exact semantics in plain PyTorch with f32 projections, the
-    parity path.
+  - "gather": exact semantics in plain PyTorch with f32 projections (autocast
+    off around them, as the JAX module's proj_dtype), the parity path.
 The windowed impls ("fused", "pallas", "sepwin", "windowed") need grid
 queries (the encoder) and start with the offset ring inside the window.
 The parameters keep the reference layout under every impl, so one
@@ -123,11 +123,13 @@ class MSDeformAttn(nn.Module):
             op = ms_deform_attn_enc_fused_plain if self.plain_ops else ms_deform_attn_enc_fused
             return op, (value, shapes, off, logits, self.window)
 
-        if self.impl == "gather":  # exact-parity path: f32 projections
-            offsets = nn.functional.linear(query.float(), self.sampling_offsets.weight.float(),
-                                           self.sampling_offsets.bias.float())
-            logits = nn.functional.linear(query.float(), self.attention_weights.weight.float(),
-                                          self.attention_weights.bias.float())
+        if self.impl == "gather":  # exact-parity path: f32 projections, also under autocast
+            with torch.autocast(query.device.type, enabled=False):
+                offsets = nn.functional.linear(query.float(), self.sampling_offsets.weight.float(),
+                                               self.sampling_offsets.bias.float())
+                logits = nn.functional.linear(query.float(),
+                                              self.attention_weights.weight.float(),
+                                              self.attention_weights.bias.float())
         elif self.impl == "pallas":  # offset features in lane order, as "fused" permutes
             offsets = nn.functional.linear(query, self.sampling_offsets.weight[self.offset_perm],
                                            self.sampling_offsets.bias[self.offset_perm]).float()

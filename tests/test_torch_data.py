@@ -1,12 +1,13 @@
 """The port imports nothing of the JAX package, and its copies of the data
 pipeline and the KITTI evaluator compute what the originals do.
 
-An AST walk over every module of monodetr_torch, chip_smoke.py and the
-port's tools (tools/*_torch.py: the CLI and the validation tools, which of
-the tests take only tests/synthetic_kitti.py, itself numpy and PIL)
-refuses any import of jax, flax or monodetr_tpu and any path built from
-the string "monodetr_tpu" (a `file.py:line` citation of a counterpart, as
-in a docstring, is fine), and any load by path (importlib's
+An AST walk over every module of monodetr_torch, chip_smoke.py,
+bench_torch.py and the port's tools (tools/*_torch.py: the CLI and the
+validation tools, which of the tests take only tests/synthetic_kitti.py,
+itself numpy and PIL) refuses any import of jax, flax, monodetr_tpu or
+the JAX side's modules at the repo's root (bench.py, __graft_entry__.py),
+any path built from the string "monodetr_tpu" (a `file.py:line` citation
+of a counterpart, as in a docstring, is fine), and any load by path (importlib's
 spec_from_file_location and SourceFileLoader, runpy.run_path, ctypes'
 CDLL and LoadLibrary) of a file that is not the port's own: a path named
 by its strings must be one of monodetr_torch/** or tools/*_torch.py, or
@@ -31,14 +32,15 @@ from monodetr_tpu.data.loader import DataLoader as JaxDataLoader
 from tests.synthetic_kitti import make_synthetic_kitti
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "monodetr_tpu")
+# jax, flax, the JAX package and the JAX side's modules at the repo's root
+FORBIDDEN = ("jax", "flax", "monodetr_tpu", "bench", "__graft_entry__")
 # a citation of the counterpart, e.g. "monodetr_tpu/ops/attention_pallas.py:162"
 CITATION = re.compile(r"^monodetr_tpu(/\w+)+\.py:\d+$")
 
 
 def port_files():
     tools = os.path.join(REPO, "tools")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
     files += [os.path.join(tools, n) for n in sorted(os.listdir(tools)) if n.endswith("_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "monodetr_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
@@ -197,6 +199,9 @@ def test_the_walk_passes_the_ports_own_loads():
     "from monodetr_tpu.data import KITTIDataset",
     "import importlib\nm = importlib.import_module('monodetr_tpu.config')",
     "m = __import__('jax')",
+    "import bench",
+    "from bench import bench_env",
+    "import __graft_entry__",
     "from pathlib import Path\nd = Path(__file__).parents[2] / 'monodetr_tpu'",
     "import os\nd = os.path.join(os.path.dirname(__file__), '..', 'monodetr_tpu', 'native.py')",
 ])
@@ -208,7 +213,9 @@ def test_the_walk_passes_docstrings_and_citations():
     source = ('"""Counterpart of monodetr_tpu/ops/attention_pallas.py."""\n'
               'def f():\n    """monodetr_tpu/native.py, copied."""\n'
               'SPEC = dict(replaces="monodetr_tpu/ops/lap_pallas.py:148")\n'
-              'from . import native\nfrom .data import loader\n')
+              'from . import native\nfrom .data import loader\n'
+              'from monodetr_torch.bench import main\nfrom .bench import bench_env\n'
+              'import bench_loader_torch\n')
     assert jax_package_uses(source) == []
 
 

@@ -6,8 +6,9 @@
 
 Both build the model from the config's `model:` section, seeded from
 `random_seed`, on `--device` (default `cuda`; no CUDA card is an error,
-never a quiet move to the CPU).  Training keeps f32 parameters and runs
-the forward in the config's compute dtype; it saves JAX-format
+never a quiet move to the CPU).  Training and `-e` keep f32 parameters
+and run the forward in the config's compute dtype under autocast, as the
+JAX tester does (tools/train_val.py:81-89); training saves JAX-format
 checkpoints under <save_path>/<model_name>/ and evaluates every
 `save_frequency` epochs unless the test split is `test`, then evaluates
 the best checkpoint.  `-e` loads the tester's checkpoint if one is on disk
@@ -94,19 +95,17 @@ def run(args, cfg, device, dp):
     model = build_monodetr(cfg["model"], seed=seed)
     logger.info("model params: %.2fM" % (sum(p.numel() for p in model.parameters()) / 1e6))
 
+    model = model.to(device)  # f32 parameters; the forward runs in `dtype` under autocast
+    tester = Tester(cfg=cfg["tester"], model=model, dataloader=test_loader, logger=logger,
+                    train_cfg=cfg["trainer"], model_name=model_name, device=device)
     if args.evaluate_only:
         if not is_main_process():  # rank 0 evaluates
             return
         logger.info("###################  Evaluation Only  ##################")
-        tester = Tester(cfg=cfg["tester"], model=model.to(device, dtype), dataloader=test_loader,
-                        logger=logger, train_cfg=cfg["trainer"], model_name=model_name,
-                        device=device)
-        tester.test()
+        with torch.autocast(device.type, dtype=dtype, enabled=dtype != torch.float32):
+            tester.test()
         return
 
-    model = model.to(device)  # f32 parameters; the forward runs in `dtype`
-    tester = Tester(cfg=cfg["tester"], model=model, dataloader=test_loader, logger=logger,
-                    train_cfg=cfg["trainer"], model_name=model_name, device=device)
     trainer = Trainer(
         cfg=cfg["trainer"], model=model, criterion=SetCriterion(cfg["model"]),
         train_loader=train_loader, lr_cfg=cfg["lr_scheduler"],
