@@ -123,6 +123,13 @@ Phases, one line each (or a few), and any failure exits non-zero:
      kernels 40 steps over (4 warm-up, 3 windows of 12) and the LAP once
      more (the FLOP count's step through the plain versions); both lines
      are printed as they came.
+Between phases 4 and 5 runs the bf16 dtype policy (phase_dtype_policy):
+one training forward of each path's model at full width (the default, A,
+B, the stress configuration at its own size, the three query variants;
+f32 parameters under bf16 autocast, dropout 0.1, remat on where the path
+has it), every norm and layer output held to bf16, as the JAX model's at
+`dtype: bf16`, and the heads' outputs to f32, with a line of each path's
+activation bytes by dtype before the per-path lines.
 The kernel report (JSON) sums each kernel's launches over the main-path
 runs of phases 5-16 and fails if one of them is 0; it is the second-to-last
 line.  Beside each kernel's time and its plain version's it gives the
@@ -1011,6 +1018,84 @@ def main_path_counts(per_run, n_runs, label):
     if counts != {k: v * n_runs for k, v in per_run.items()}:
         raise RuntimeError(f"{label}: launches {counts}, want {per_run} x {n_runs}")
     return counts
+
+
+def phase_dtype_policy():
+    """The bf16 dtype policy on every path at full width: one training
+    forward of each path's model (f32 parameters under CUDA's bf16
+    autocast, dropout 0.1, gradients on, so remat runs) with forward hooks
+    on its norms and layers (models/layers.py:recorded_output_dtypes):
+    every LayerNorm and GroupNorm output and every encoder, decoder and
+    depth-encoder layer output must be bf16, as the JAX model's at `dtype:
+    bf16` (tests/test_torch_bf16_policy.py holds the map to JAX's), and the
+    heads' outputs f32.  First one line with each path's activation bytes
+    by dtype (the outputs of the leaf modules in that forward) and the
+    memory that the forward holds for the backward; then one line per
+    path."""
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.layers import policy_modules, recorded_output_dtypes
+    from monodetr_torch.models.monodetr import build_monodetr
+    from monodetr_torch.train.train_step import batch_to_device
+
+    t0 = time.time()
+    f32_norms = ("enc_output_norm", "pos_trans_norm")
+    out_keys = ("pred_logits", "pred_boxes", "pred_3d_dim", "pred_depth", "pred_angle",
+                "pred_depth_map_logits", "weighted_depth")
+    sizes, lines, failed = [], [], []
+    paths = ([("default", {}, 16, (384, 1280)), ("A", CONFIG_A, 16, (384, 1280)),
+              ("B", CONFIG_B, 16, (384, 1280)), ("stress", STRESS, STRESS_BATCH, STRESS_SIZE)]
+             + [(name, overrides, 16, (384, 1280)) for name, overrides in VARIANTS.items()])
+    for name, overrides, batch, size in paths:
+        cfg = dict(MONODETR_MODEL, **overrides)
+        model = build_monodetr(cfg, seed=444).cuda().train()
+        b = batch_to_device(next(iter(SyntheticLoader(1, batch, 7, *size)))[0], "cuda")
+        by_dtype = {}
+
+        def count(module, args, out):
+            for t in torch.utils._pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_floating_point():
+                    by_dtype[t.dtype] = by_dtype.get(t.dtype, 0) + t.numel() * t.element_size()
+
+        leaves = [m.register_forward_hook(count) for m in model.modules()
+                  if not list(m.children())]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            with recorded_output_dtypes(model) as seen, torch.autocast("cuda",
+                                                                      dtype=torch.bfloat16):
+                out = model(b["images"], b["calibs"], b["img_sizes"], train=True, gen=gen)
+        finally:
+            for h in leaves:
+                h.remove()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        want = {n for n in policy_modules(model) if not n.endswith(f32_norms)}
+        wrong = {n: sorted(str(d) for d in seen[n]) for n in want
+                 if seen.get(n) != {torch.bfloat16}}
+        heads = {k: str(out[k].dtype) for k in out_keys if out[k].dtype != torch.float32}
+        ok = set(seen) == want and not wrong and not heads
+        sizes.append(f"{name} {by_dtype.get(torch.float32, 0) / 1e9:.3f} GB f32 / "
+                     f"{by_dtype.get(torch.bfloat16, 0) / 1e9:.3f} GB bf16, held "
+                     f"{held / 2 ** 30:.2f} GiB")
+        lines.append(f"bf16 dtype policy {name} ({batch} x {size[0]}x{size[1]}): {len(seen)} "
+                     f"norm and layer outputs bf16 {not wrong and set(seen) == want}"
+                     + (f" (not bf16: {wrong}; not run: {sorted(want - set(seen))})"
+                        if wrong or set(seen) != want else "")
+                     + f", heads' outputs f32 {not heads}" + (f" ({heads})" if heads else "")
+                     + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        del model, out, b
+        torch.cuda.empty_cache()
+    log("bf16 dtype policy: activation bytes by dtype (outputs of the leaf modules in one "
+        "training forward) and the memory the forward holds for the backward: "
+        + "; ".join(sizes))
+    for line in lines:
+        log(line)
+    log(f"bf16 dtype policy in {time.time() - t0:.1f} s")
+    if failed:
+        raise RuntimeError(f"bf16 dtype policy: {failed} differ from the JAX model's")
 
 
 def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
@@ -2133,6 +2218,7 @@ def main(argv):
     windowed_backward = phase_window_edges()
     phase_dropout()
     report.update(phase_lap())
+    phase_dtype_policy()
     totals = dict.fromkeys(KERNELS, 0)
 
     def add(counts):

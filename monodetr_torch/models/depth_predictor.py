@@ -11,7 +11,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops.utils import device_constant, interpolate_1d_embed, lid_bin_values
-from .layers import MultiheadAttention, conv_gn, dropout
+from .layers import LayerNorm, MultiheadAttention, conv_gn, dropout, forward_dtype
 
 
 class DepthEncoderLayer(nn.Module):
@@ -21,10 +21,10 @@ class DepthEncoderLayer(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, nhead, dropout)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, gen=None):
         p = self.dropout
@@ -75,9 +75,12 @@ class DepthPredictor(nn.Module):
                  depth_pos_embed_ip tokens [B, h16*w16, C])."""
         f8, f16, f32 = srcs[0], srcs[1], srcs[2]
         B, C, h16, w16 = f16.shape
+        dtype = forward_dtype(f16.device, self.proj[0].weight.dtype)
         src_16 = self.proj(f16)
-        # jax.image.resize bilinear == align_corners=False with clamped edges
-        up32 = F.interpolate(f32, size=(h16, w16), mode="bilinear", align_corners=False)
+        # jax.image.resize bilinear == align_corners=False with clamped edges;
+        # CUDA autocast returns f32 from it, JAX the compute dtype
+        up32 = F.interpolate(f32, size=(h16, w16), mode="bilinear",
+                             align_corners=False).to(dtype)
         src_32 = self.upsample(up32)
         src_8 = self.downsample(f8)
         src = self.depth_head((src_8 + src_16 + src_32) / 3)
@@ -92,5 +95,5 @@ class DepthPredictor(nn.Module):
         d = weighted_depth.clamp(0.0, self.depth_max)
         table = self.depth_pos_embed.weight.float()
         depth_pos_embed_ip = interpolate_1d_embed(d, table).reshape(B, h16 * w16, C)
-        depth_pos_embed_ip = depth_pos_embed_ip.to(tokens.dtype)
+        depth_pos_embed_ip = depth_pos_embed_ip.to(dtype)
         return depth_logits, depth_embed + depth_pos_embed_ip, weighted_depth, depth_pos_embed_ip

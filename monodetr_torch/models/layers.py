@@ -1,12 +1,21 @@
 """Shared building blocks (monodetr_tpu/models/layers.py): the ReLU MLP
 head, torch-compatible multi-head attention over [B, T, C], conv + GroupNorm,
-the post-norm FFN, and dropout.
+the post-norm FFN, dropout, and the mixed-precision policy's two parts: the
+compute dtype (forward_dtype) and the norms that return it.
+
+The policy is the JAX model's at `dtype: bf16`: a tensor that a flax module
+computes in its `dtype` is in the compute dtype here, whatever the device's
+autocast lists say (CUDA autocast runs layer_norm and group_norm in f32 and
+returns f32; flax's LayerNorm and GroupNorm return their `dtype`).  So the
+compute dtype is never read off an activation.
 
 Dropout is flax's nn.Dropout: x / (1 - p) where kept, P(keep) = 1 - p.
 Every random draw comes from an explicit torch.Generator passed down the
 forward (`gen`); with gen None (evaluation) dropout is the identity.
 `checkpoint_with_gen` rematerialises a region that draws from such a
 generator."""
+
+import contextlib
 
 from torch import nn
 import torch
@@ -19,6 +28,63 @@ from ..ops.attention import attention_plain, fused_attention
 # kernel (layers.py:98-100): the depth encoder's 1920 x 1920 and, in
 # training, the decoder's 550 x 1920 depth cross-attention
 FUSED_ATTENTION_MIN_LOGITS = 1_000_000
+
+
+def forward_dtype(device, params_dtype):
+    """The compute dtype of a forward on `device`: autocast's dtype where
+    autocast is on, else the parameters' (a model cast by model.to(dtype))."""
+    device_type = torch.device(device).type
+    if torch.is_autocast_enabled(device_type):
+        return torch.get_autocast_dtype(device_type)
+    return params_dtype
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm that returns the compute dtype, as flax's
+    LayerNorm(dtype=...) does: the statistics and the affine map in f32 on
+    the f32 parameters, the result cast once (flax/linen/normalization.py:
+    _normalize).  In f32 it is nn.LayerNorm, bit for bit."""
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(forward_dtype(x.device, self.weight.dtype))
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm that returns the compute dtype (as LayerNorm above)."""
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+                         self.eps)
+        return y.to(forward_dtype(x.device, self.weight.dtype))
+
+
+def policy_modules(model):
+    """{name: module} of the modules whose output the policy fixes: every
+    LayerNorm and GroupNorm, and every layer of the encoder, the decoder and
+    the depth encoder (the modules with a `norm1`).  The proposal branches'
+    f32 norms are among them but are never called as modules."""
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, (nn.LayerNorm, nn.GroupNorm))
+            or isinstance(getattr(m, "norm1", None), nn.LayerNorm)}
+
+
+@contextlib.contextmanager
+def recorded_output_dtypes(model):
+    """Forward hooks on policy_modules(model); yields a dict that fills, as
+    the model runs, with {module name: set of its outputs' dtypes}."""
+    seen = {}
+
+    def hook(name):
+        return lambda module, args, out: seen.setdefault(name, set()).add(out.dtype)
+
+    handles = [m.register_forward_hook(hook(name)) for name, m in policy_modules(model).items()]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def dropout(x, p, gen):
@@ -122,7 +188,7 @@ def conv_gn(cin, cout, kernel=1, stride=1, groups=32):
     (monodetr.py:83-91); as nn.Sequential so the names are `.0` / `.1`."""
     return nn.Sequential(
         nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2),
-        nn.GroupNorm(groups, cout, eps=1e-5))
+        GroupNorm(groups, cout, eps=1e-5))
 
 
 def ffn(x, linear1, linear2, norm, p=0.0, gen=None):

@@ -13,12 +13,14 @@ parameter tree.  With `two_stage` the class and bbox heads have one set
 more than the decoder has layers (the extra set scores the encoder's
 proposals); the size, angle and depth heads do not, as in the JAX tree
 (monodetr.py:167-186, where flax makes the parameters of a called head
-only).  Run the model in a compute dtype by casting it
-(`model.to(dtype)`); the places where the JAX model computes in f32
-whatever its dtype (reference points, the proposal branches, depth logits
-and bins, the heads' outputs and the depth fusion) are f32 here too.
-Training keeps f32 parameters and computes in bf16 under torch.autocast
-(train/train_step.py).
+only).  The compute dtype is autocast's (training, the tester and -e keep
+f32 parameters and run under torch.autocast, train/train_step.py) or, with
+autocast off, the parameters' (`model.to(dtype)`): layers.forward_dtype.
+Every activation that the JAX model computes in its `dtype` is in it,
+the norms' outputs too, on every device; the places where the JAX model
+computes in f32 whatever its dtype (reference points, the proposal
+branches, depth logits and bins, the heads' outputs and the depth fusion)
+are f32 here too.
 """
 
 import math
@@ -30,7 +32,7 @@ from ..ops.utils import grid_sample_bilinear, inverse_sigmoid
 from ..utils.misc import component
 from .backbone import BACKBONE_NUM_CHANNELS, FrozenBatchNorm2d, ResNetBackbone
 from .depth_predictor import DepthPredictor
-from .layers import MLP, MultiheadAttention, conv_gn
+from .layers import MLP, MultiheadAttention, conv_gn, forward_dtype
 from .msda_module import MSDeformAttn
 from .position_encoding import LearnedPositionEmbedding, sine_pos_table
 from .transformer import DepthAwareTransformer
@@ -114,7 +116,7 @@ class MonoDETR(nn.Module):
         boxes, monodetr.py:324-328); with two_stage or two_stage_dino
         proposal_idx, the top-k token indices the decoder's queries came
         from."""
-        dtype = self.depthaware_transformer.level_embed.dtype
+        dtype = forward_dtype(images.device, self.depthaware_transformer.level_embed.dtype)
         # NHWC memory seen as NCHW: channels_last, no copy
         x = images.to(dtype).permute(0, 3, 1, 2)
         with component("backbone"):

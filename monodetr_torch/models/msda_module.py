@@ -47,6 +47,7 @@ from ..ops.msda_sep import ms_deform_attn_sep
 from ..ops.msda_sepwin import ms_deform_attn_sepwin
 from ..ops.msda_windowed import ms_deform_attn_windowed
 from ..ops.utils import device_constant
+from .layers import forward_dtype
 
 IMPLS = ("gather", "fused", "pallas", "dense", "dense_fused", "sep", "sepwin", "windowed")
 WINDOWED_IMPLS = ("pallas", "fused", "sepwin", "windowed")
@@ -98,7 +99,8 @@ class MSDeformAttn(nn.Module):
         centres) or [B, Q, L, 6] (cxcylrtb boxes); value_tokens [B, S, C];
         spatial_shapes ((h, w), ...).  Returns [B, Q, C]."""
         op, args = self.sampling(query, reference_points, value_tokens, spatial_shapes)
-        return self.output_proj(op(*args).to(query.dtype))
+        dtype = forward_dtype(query.device, self.output_proj.weight.dtype)
+        return self.output_proj(op(*args).to(dtype))
 
     def sampling(self, query, reference_points, value_tokens, spatial_shapes):
         """(op, args): the impl's sampling op and its inputs, made from the

@@ -14,7 +14,8 @@ and 6-D anchor references; `two_stage_dino`, top-k encoder proposals as
 references with a learned content table.  DAB and DINO recompute each
 decoder layer's query position from the sine embedding of its reference.
 The proposal branches and DAB's references compute in f32 whatever the
-compute dtype, as in JAX (autocast off, explicit casts).
+compute dtype, as in JAX (autocast off, explicit casts); everything else
+is in the compute dtype (layers.forward_dtype), the norms' outputs too.
 
 As in the reference, the value of decoder self-attention is the raw `tgt`
 (the reference computes sa_v_proj and then overwrites it,
@@ -32,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.utils import device_constant, inverse_sigmoid
 from ..utils.misc import component
-from .layers import MLP, MultiheadAttention, checkpoint_with_gen, dropout, ffn
+from .layers import (MLP, LayerNorm, MultiheadAttention, checkpoint_with_gen, dropout, ffn,
+                     forward_dtype)
 from .msda_module import MSDeformAttn
 
 QUERY_VARIANTS = ("two_stage", "use_dab", "two_stage_dino")
@@ -145,10 +147,10 @@ class VisualEncoderLayer(nn.Module):
         self.remat = remat
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       impl=msda_impl, window=msda_window)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes, gen=None):
         attn = self.self_attn
@@ -166,7 +168,8 @@ class VisualEncoderLayer(nn.Module):
 
     def _after_sampling(self, src, sampled, gen):
         p = self.dropout
-        src2 = self.self_attn.output_proj(sampled.to(src.dtype))
+        out_proj = self.self_attn.output_proj
+        src2 = out_proj(sampled.to(forward_dtype(src.device, out_proj.weight.dtype)))
         src = self.norm1(src + dropout(src2, p, gen))
         return ffn(src, self.linear1, self.linear2, self.norm2, p, gen)
 
@@ -178,18 +181,18 @@ class DepthAwareDecoderLayer(nn.Module):
         self.dropout = dropout
         self.group_num, self.num_queries = group_num, num_queries
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, impl=msda_impl)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn_depth = MultiheadAttention(d_model, n_heads, dropout)
-        self.norm_depth = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm_depth = LayerNorm(d_model, eps=1e-5)
         self.self_attn = MultiheadAttention(d_model, n_heads, dropout)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.sa_qcontent_proj = nn.Linear(d_model, d_model)
         self.sa_qpos_proj = nn.Linear(d_model, d_model)
         self.sa_kcontent_proj = nn.Linear(d_model, d_model)
         self.sa_kpos_proj = nn.Linear(d_model, d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, depth_embed,
                 gen=None):
@@ -298,8 +301,8 @@ class DepthAwareTransformer(nn.Module):
         B = srcs[0].shape[0]
         C = self.d_model
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
-        dtype = srcs[0].dtype
-        memory = torch.cat([s.reshape(B, -1, C) for s in srcs], 1)
+        dtype = forward_dtype(srcs[0].device, self.level_embed.dtype)
+        memory = torch.cat([s.reshape(B, -1, C) for s in srcs], 1).to(dtype)
         pos_flat = torch.cat(
             [p.reshape(B, -1, C) + self.level_embed[l] for l, p in enumerate(pos_embeds)],
             1).to(dtype)

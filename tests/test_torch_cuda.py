@@ -22,6 +22,8 @@ level of more tiles than kernel 7's binning sorts at a time; a pyramid whose
 tokens pass 32-bit offsets is refused.  The query variants' forwards run
 the kernels as the standard model's does, and a data-parallel step of two
 gloo ranks sharing the card equals one process's step on their images.
+Under CUDA's bf16 autocast every norm and layer output of each path is
+bf16, as the JAX model's.
 """
 
 import numpy as np
@@ -204,6 +206,52 @@ def test_query_variant_forward_through_kernels(cuda, variant):
     for k in got.get("enc_outputs", {}):
         torch.testing.assert_close(got["enc_outputs"][k], want["enc_outputs"][k], rtol=1e-3,
                                    atol=1e-3)
+
+
+# the model options of the paths whose bf16 dtype map is held on the card
+# (tests/test_torch_bf16_policy.py holds the same map to the JAX model's)
+POLICY_PATHS = {
+    "default": dict(msda_impl="fused", dec_msda_impl="sep"),
+    "A": dict(msda_impl="pallas", dec_msda_impl="dense_fused"),
+    "B": dict(msda_impl="sepwin", dec_msda_impl="sep"),
+    "stress": dict(msda_impl="fused", dec_msda_impl="sep", backbone="resnet101", dilation=True,
+                   position_embedding="learned", remat=True),
+    "two_stage": dict(msda_impl="fused", dec_msda_impl="sep", two_stage=True, group_num=1),
+    "use_dab": dict(msda_impl="fused", dec_msda_impl="sep", use_dab=True),
+    "two_stage_dino": dict(msda_impl="fused", dec_msda_impl="sep", two_stage_dino=True),
+}
+
+
+@pytest.mark.parametrize("path", list(POLICY_PATHS))
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_dtype_map_under_cuda_autocast(cuda, path, train):
+    """A 1+1-layer model at 128x256, f32 parameters under CUDA's bf16
+    autocast (whose f32 list holds layer_norm and group_norm), the eval
+    forward and the training forward with dropout (gradients on, so remat
+    runs): every LayerNorm and GroupNorm output and every encoder, decoder
+    and depth-encoder layer output is bf16, as the JAX model's at `dtype:
+    bf16`; the heads' outputs, the depth map and the proposals' stay f32."""
+    from monodetr_torch.models.layers import policy_modules, recorded_output_dtypes
+
+    model = build_monodetr(dict(msda_window=6, enc_layers=1, dec_layers=1,
+                                **POLICY_PATHS[path]), seed=0).to(cuda)
+    rng = np.random.RandomState(3)
+    images = torch.from_numpy(rng.randn(2, 128, 256, 3).astype(np.float32)).to(cuda)
+    calibs = torch.tensor([[700.0, 0, 600, 45], [0, 700, 170, 0], [0, 0, 1, 0]],
+                          device=cuda).expand(2, 3, 4)
+    sizes = torch.tensor([[1242.0, 375.0]], device=cuda).expand(2, 2)
+    gen = torch.Generator(device=cuda).manual_seed(0) if train else None
+    with recorded_output_dtypes(model) as seen, torch.autocast("cuda", dtype=torch.bfloat16):
+        out = model(images, calibs, sizes, train=train, gen=gen)
+    f32_norms = ("enc_output_norm", "pos_trans_norm")
+    assert set(seen) == {n for n in policy_modules(model) if not n.endswith(f32_norms)}
+    wrong = {n: d for n, d in seen.items() if d != {torch.bfloat16}}
+    assert not wrong, f"{len(wrong)} of {len(seen)} modules not bf16: {wrong}"
+    for k in ("pred_logits", "pred_boxes", "pred_3d_dim", "pred_depth", "pred_angle",
+              "pred_depth_map_logits", "weighted_depth"):
+        assert out[k].dtype == torch.float32, k
+    for k, v in out.get("enc_outputs", {}).items():
+        assert v.dtype == torch.float32, k
 
 
 def test_two_gloo_ranks_on_the_card_equal_one_process(cuda):
