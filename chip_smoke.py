@@ -19,7 +19,8 @@ Phases, one line each (or a few), and any failure exits non-zero:
      and the attention forward and backward with dropout (gradients
      against autograd through the plain versions, f32 at B=2 and bf16 at
      B=16; kernels 2 and 7 at 50 and 550 queries, timed at both, with the
-     device time of every launch their wrappers make), kernels 2 and 7 at
+     device time of every launch their wrappers make, as kernel 1's
+     backward), kernels 2 and 7 at
      32 samples per head and with all 550 queries' samples inside one 16 x
      16 px patch (a line each with that time beside the uniform one), the
      dropout's properties, and the LAP kernel bit-identical to its plain
@@ -50,8 +51,10 @@ Phases, one line each (or a few), and any failure exits non-zero:
      also held to them at the window's edge (most positions beyond the
      window: kernel 6 clamps them and masks their gradient, kernel 5
      samples them as they are, outside the rectangles its backward stages
-     in shared memory), and a line gives that backward's shared-memory
-     bytes and blocks per SM;
+     in shared memory), kernel 1's backward, which stages the same
+     rectangles, with every offset beyond the window (timed at B=16 beside
+     the training offsets), and a line gives the three backwards'
+     shared-memory bytes and blocks per SM;
   8. the stress configuration (bench.py's BENCH_BACKBONE=resnet101
      BENCH_H=768 BENCH_W=2560 BENCH_BS=2 BENCH_REMAT=1; the default impls,
      bf16): 3 train steps with their launch counters, then 2 with remat
@@ -147,14 +150,18 @@ backward at 0), which gives dropout's share of its time.  The last line is
 {"ok": true, "device": {...}}.
 
 With --decoder-msda-only the run is phases 1 and 2 and what phases 3 and 4
-do for kernels 2 and 7, with --lap-only phases 1 and 2 and the LAP
+do for kernels 2 and 7, with --encoder-msda-only the same for kernels 1,
+5 and 6 and kernel 1's backward with every offset beyond the window
+(phase_enc_clustered), with --lap-only phases 1 and 2 and the LAP
 part of phase 4, with --learning-loop-only phases 1, 2 and 11-15, and
 with --bench-only phases 1, 2 and 16; none prints the report or the last
 line.  Each is a
 minute or less for those kernels' times, e.g. of two checkouts one after
 the other on one card (the wrappers they call are `ms_deform_attn_sep`,
-`ms_deform_attn_dense_fused` and their `_bwd`, and `lap_solve`; --lap-only
-also needs `lap_step_latencies` and `lap_edge_cases` in ops/lap.py).
+`ms_deform_attn_dense_fused`, `ms_deform_attn_enc_fused`,
+`ms_deform_attn_pallas_packed`, `ms_deform_attn_sepwin` and their `_bwd`,
+and `lap_solve`; --lap-only also needs `lap_step_latencies` and
+`lap_edge_cases` in ops/lap.py).
 """
 
 import contextlib
@@ -223,7 +230,7 @@ KERNELS = {
         fn=ms_deform_attn_enc_fused, route="cuda", source="monodetr_torch/csrc/msda.cu",
         replaces="monodetr_tpu/ops/msda_enc_pallas.py:653"),
     "msda_enc_fused_bwd": dict(
-        fn=ms_deform_attn_enc_fused_bwd, route="cuda", source="monodetr_torch/csrc/msda.cu",
+        fn=ms_deform_attn_enc_fused_bwd, route="cuda", source="monodetr_torch/csrc/msda_win.cu",
         replaces="monodetr_tpu/ops/msda_enc_pallas.py:597"),
     "msda_sep": dict(
         fn=ms_deform_attn_sep, route="cuda", source="monodetr_torch/csrc/msda_loc.cu",
@@ -453,6 +460,8 @@ def forward_plain(name):
 
 
 LOC_KERNELS = ("msda_sep", "msda_sep_bwd", "msda_dense_fused", "msda_dense_fused_bwd")
+ENC_KERNELS = ("msda_enc_fused", "msda_enc_fused_bwd", "msda_pallas", "msda_pallas_bwd",
+               "msda_sepwin", "msda_sepwin_bwd")
 
 
 FORWARD_KERNELS = ("msda_enc_fused", "msda_sep", "attention_fwd", "msda_pallas", "msda_sepwin",
@@ -706,7 +715,7 @@ def phase_backward_kernels(names=BACKWARD_KERNELS):
                    f"{library_ms:.3f} ms" if library_ms is not None else ""))
             timed[q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=library_ms)
-            if name in LOC_KERNELS:
+            if name in LOC_KERNELS or name == "msda_enc_fused_bwd":
                 parts = device_ms_by_launch(lambda: kernel(gout))
                 log(f"kernel {name} {tag} on the card, by launch: {by_launch(parts)}")
                 timed[q]["device_ms"] = parts
@@ -788,8 +797,10 @@ def phase_window_edges():
     their plain versions, f32 at B=2 and bf16 at B=16: kernel 6 from
     locations of which most lie beyond the window (the clamp and the dloc
     mask), kernel 5 at those positions unclamped (exact beyond the window,
-    where its value gradient goes to device memory directly).  Then the
-    backward's shared memory and blocks per SM, as the runtime reports."""
+    where its value gradient goes to device memory directly).  Then kernel
+    1's backward with every sample at its window's bound
+    (phase_enc_clustered), and the shared memory and blocks per SM of the
+    three backwards' tile passes, as the runtime reports."""
     wh = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32, device="cuda")
     for dtype, B in ((torch.float32, 2), (torch.bfloat16, 16)):
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -830,9 +841,11 @@ def phase_window_edges():
                 if not masked:
                     raise RuntimeError("msda_sepwin_bwd: a clamped position got a gradient")
             del xs, want, got, grads
+    phase_enc_clustered()
     tiles = window_tiles(LEVELS, G)
     shape = {}
-    for kernel, name in ((5, "msda_pallas_bwd"), (6, "msda_sepwin_bwd")):
+    for kernel, name in ((1, "msda_enc_fused_bwd"), (5, "msda_pallas_bwd"),
+                         (6, "msda_sepwin_bwd")):
         blocks, smem = backward_occupancy(kernel, torch.bfloat16, LEVELS, G)
         shape[name] = {"smem_bytes": smem, "blocks_per_sm": blocks}
         if smem != tiles.smem_bytes or blocks < 1:
@@ -841,6 +854,41 @@ def phase_window_edges():
     return {"windowed_backward": dict(
         shape, heads_per_block=WIN_HEADS, tile_pixels=list(tiles.side),
         queries_per_tile=tiles.queries, rows_per_head=tiles.rows)}
+
+
+def phase_enc_clustered():
+    """Kernel 1's backward with every offset beyond the window, so every
+    sample sits at a corner of its query's window and many add to the same
+    staged rows: against the plain version (f32 B=2, bf16 B=16; doff all
+    0), timed at B=16 beside the training inputs of enc_offsets."""
+    lim = window_limit(G)
+    for dtype, B in ((torch.float32, 2), (torch.bfloat16, 16)):
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        value = randn(gen, B, S, H, D).to(dtype)
+        even = enc_offsets(gen, B)
+        off = (torch.sign(even) * (lim + 1 / 32 + even.abs() % 1)).to(dtype)
+        even = even.to(dtype)
+        logits = randn(gen, B, S, H * L * P, scale=2.0).to(dtype)
+        gout = randn(gen, B, S, H * D).to(dtype)
+        xs = [x.detach().requires_grad_(True) for x in (value, off, logits)]
+        want = torch.autograd.grad(ms_deform_attn_enc_fused_plain(xs[0], LEVELS, xs[1], xs[2], G),
+                                   xs, gout)
+        tag = f"{str(dtype).replace('torch.', '')} B={B} every offset beyond the window"
+        grads = ms_deform_attn_enc_fused_bwd(value, LEVELS, off, logits, gout, G)
+        check_grads("msda_enc_fused_bwd", tag, dtype, grads, want)
+        masked = (grads[1] == 0).all().item()
+        log(f"kernel msda_enc_fused_bwd {tag}: doff 0 everywhere {masked} "
+            f"{'ok' if masked else 'FAIL'}")
+        if not masked:
+            raise RuntimeError("msda_enc_fused_bwd: a clamped offset got a gradient")
+        if B == 16:
+            ms = cuda_ms(lambda: ms_deform_attn_enc_fused_bwd(value, LEVELS, off, logits, gout, G),
+                         iters=10)
+            even_ms = cuda_ms(
+                lambda: ms_deform_attn_enc_fused_bwd(value, LEVELS, even, logits, gout, G),
+                iters=10)
+            log(f"kernel msda_enc_fused_bwd {tag}: {ms:.3f} ms, training offsets {even_ms:.3f} ms")
+        del xs, want, grads
 
 
 def edge_bounds():
@@ -2190,10 +2238,10 @@ def phase_learning_loop(add):
 
 
 def main(argv):
-    if argv not in ([], ["--decoder-msda-only"], ["--lap-only"], ["--learning-loop-only"],
-                    ["--bench-only"]):
-        sys.exit("usage: python3 chip_smoke.py [--decoder-msda-only | --lap-only | "
-                 f"--learning-loop-only | --bench-only], not {argv}")
+    if argv not in ([], ["--decoder-msda-only"], ["--encoder-msda-only"], ["--lap-only"],
+                    ["--learning-loop-only"], ["--bench-only"]):
+        sys.exit("usage: python3 chip_smoke.py [--decoder-msda-only | --encoder-msda-only | "
+                 f"--lap-only | --learning-loop-only | --bench-only], not {argv}")
     phase_environment()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2206,6 +2254,11 @@ def main(argv):
         return
     if argv == ["--bench-only"]:
         phase_bench()
+        return
+    if argv == ["--encoder-msda-only"]:
+        phase_forward_kernels([n for n in FORWARD_KERNELS if n in ENC_KERNELS])
+        phase_backward_kernels([n for n in BACKWARD_KERNELS if n in ENC_KERNELS])
+        phase_enc_clustered()
         return
     if argv:
         phase_forward_kernels([n for n in FORWARD_KERNELS if n in LOC_KERNELS])

@@ -47,7 +47,7 @@ _F = ctypes.c_float
 # entry point -> argument types (see csrc/*.cu)
 SIGNATURES = {
     "mdt_msda_enc_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P),
-    "mdt_msda_enc_fused_bwd": (_P,) * 7 + (_I,) * 7 + (_P, _F, _P),
+    "mdt_msda_enc_fused_bwd_tiles": (_P,) * 9 + (_I,) * 7 + (_P, _P, _P, _F, _P),
     "mdt_msda_sep": (_P,) * 4 + (_I,) * 8 + (_P, _P),
     "mdt_msda_sep_bwd": (_P,) * 7 + (_I,) * 8 + (_P, _P),
     "mdt_msda_pallas": (_P,) * 5 + (_I,) * 7 + (_P, _P),

@@ -174,6 +174,36 @@ __device__ __forceinline__ void store4(T* p, const float (&x)[4], int n) {
     if (u < n) p[u] = from_f32<T>(x[u]);
 }
 
+// Kernel 1's per-head softmax over its L*P <= 16 logits, as a quad takes
+// it: thread s holds logits 4s .. 4s + 3 (n of them; zeros past n), and the
+// head's own maximum (ROADMAP.md C2) and the sum take 2 quad shuffles each.
+// Returns the weights in x.
+__device__ __forceinline__ void quad_softmax(float (&x)[4], int n, unsigned qmask) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) m = u < n ? fmaxf(m, x[u]) : m;
+  m = fmaxf(m, __shfl_xor_sync(qmask, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(qmask, m, 2));
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    x[u] = u < n ? expf(x[u] - m) : 0.f;
+    sum += x[u];
+  }
+  sum += __shfl_xor_sync(qmask, sum, 1);
+  sum += __shfl_xor_sync(qmask, sum, 2);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) x[u] /= sum;
+}
+
+// Whether every thread's 4 logits and offsets of kernel 1 are one aligned
+// vector load (load4's `vec`).
+inline bool enc_vec(int dtype, int LP, const void* off, const void* logits) {
+  const uintptr_t bytes = 4u * (dtype == kBF16 ? 2u : 4u);
+  return LP % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(off) | reinterpret_cast<uintptr_t>(logits)) % bytes) == 0;
+}
+
 // The four corners k = 0 (x0, y0), 1 (x0 + 1, y0), 2 (x0, y0 + 1), 3 of a
 // sample at pixel (x, y) of a w-wide, h-high level: flat token index in the
 // level, bilinear weight, and in bit k of `ok` whether the corner lies in
@@ -492,10 +522,10 @@ __device__ __forceinline__ void win_keep_gradient(float* smem, const WinWarp& t,
 // level, or of a sample with `on` false (no query, or a == 0), adds to the
 // spare row.  A corner inside the level but outside the staged rectangle (a
 // position beyond the window, or a level that is not staged) goes to device
-// memory by 2 vector atomics as in kernel 1's backward: thread s adds
-// channels 4s .. 4s + 3 and 16 + 4s .. 16 + 4s + 3 of the output gradient
-// row `gq`, so each atomic instruction of the quad covers 64 contiguous
-// bytes; `gv` points at channel 0 of this head in the level's token 0.
+// memory by 2 vector atomics: thread s adds channels 4s .. 4s + 3 and
+// 16 + 4s .. 16 + 4s + 3 of the output gradient row `gq`, so each atomic
+// instruction of the quad covers 64 contiguous bytes; `gv` points at
+// channel 0 of this head in the level's token 0.
 template <typename T>
 __device__ __forceinline__ void win_add(float* smem, const WinWarp& t, const Corners& c, float a,
                                         bool on, const T* gq, float* gv, int row, int lane) {

@@ -1,5 +1,5 @@
 // The encoder's multi-scale deformable attention for Hopper (sm_90a),
-// forward and backward.
+// forward.  Its backward is msda_win.cu's msda_enc_fused_bwd_*_kernel.
 //
 // Kernel 1 (replaces monodetr_tpu/ops/msda_enc_pallas.py:
 // ms_deform_attn_enc_fused, forward _fwd_kernel).  Grid queries: query q of
@@ -13,7 +13,8 @@
 // It runs the quad core of common.cuh (quad_sample_sum, quad_sample_dots),
 // which it shares with the windowed kernels 5 and 6 of msda_win.cu and the
 // decoder's kernels 2 and 7 of msda_loc.cu: four threads per (b, q, h),
-// 16-byte corner loads; its backward adds dvalue by vector atomics.
+// 16-byte corner loads.  Its backward is that of kernels 5 and 6 (the
+// windowed tile sums of msda_win.cu) on kernel 1's operands.
 //
 // What bounds it on the H100: gathers.  At B=16, S=10200 kernel 1 reads
 // 16 * 10200 * 8 * 16 * 4 corner rows of 64 B (bf16), ~5 GB of corner rows
@@ -25,8 +26,8 @@
 // hat-function matmuls existed because TPU gathers are slow; on Hopper the
 // plain gather is the fast path.  Staging a query tile's value window in
 // shared memory (the Hopper analogue of the TPU strips) is the next step
-// if the L1 hit rate turns out to bound kernel 1's forward; the windowed
-// backward of msda_win.cu already sums a tile's value gradient there.
+// if the L1 hit rate turns out to bound kernel 1's forward; its backward
+// already sums a tile's value gradient there.
 #include "common.cuh"
 
 namespace mdt {
@@ -37,22 +38,17 @@ namespace mdt {
 // overlap in L1.  Prologue: thread s reads logits and x/y offsets of samples
 // 4s .. 4s + 3 by vector loads; the head's max and sum take 2 quad shuffles
 // each (the head's own maximum, ROADMAP.md C2); each thread computes the
-// weight, clamp and pixel position of its 4 samples.  Sampling:
-// common.cuh:quad_sample_sum.  The level table is a __grid_constant__
-// parameter, indexed in place, so the kernels keep no stack frame.  The
-// backward has the same layout: gatt, gx and gy are 8-channel partial dots
-// plus 2 quad shuffles each (common.cuh:quad_sample_dots), and dvalue goes
-// to the f32 gvalue by atomicAdd(float4*) (compute capability 9.x), 2
-// vector atomics per corner and thread.
+// weight, clamp and pixel position of its 4 samples (common.cuh:
+// quad_softmax).  Sampling: common.cuh:quad_sample_sum.  The level table is
+// a __grid_constant__ parameter, indexed in place, so the kernel keeps no
+// stack frame.
 constexpr int kEncQuads = 64;
 constexpr int kEncThreads = 4 * kEncQuads;
 
 // Thread s of the quad of (b, q, h): samples j = 4s + u (u < n), their
-// softmaxed weight and clamped pixel position, and in bit u (4 + u) of
-// `free` whether |x (y) offset| < lim, the backward's clamp mask.
+// softmaxed weight and clamped pixel position.
 struct EncQuad {
   int n;
-  unsigned free;
   float att[4], fx[4], fy[4];
 };
 
@@ -65,34 +61,19 @@ __device__ __forceinline__ EncQuad enc_prologue(const T* __restrict__ off,
   const int64_t nlog = (int64_t)H * LP;
   EncQuad e;
   e.n = min(max(LP - 4 * sub, 0), 4);
-  float lg[4], ox[4], oy[4];
-  load4(logits + bq * nlog + h * LP + 4 * sub, lg, e.n, vec);
+  float ox[4], oy[4];
+  load4(logits + bq * nlog + h * LP + 4 * sub, e.att, e.n, vec);
   load4(off + bq * 2 * nlog + h * LP + 4 * sub, ox, e.n, vec);
   load4(off + bq * 2 * nlog + nlog + h * LP + 4 * sub, oy, e.n, vec);
-  float m = -INFINITY;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) m = u < e.n ? fmaxf(m, lg[u]) : m;
-  m = fmaxf(m, __shfl_xor_sync(qmask, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(qmask, m, 2));  // this head's own maximum
-  float sum = 0.f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    e.att[u] = u < e.n ? expf(lg[u] - m) : 0.f;
-    sum += e.att[u];
-  }
-  sum += __shfl_xor_sync(qmask, sum, 1);
-  sum += __shfl_xor_sync(qmask, sum, 2);
+  quad_softmax(e.att, e.n, qmask);
   const GridPos gp = grid_pos(q, lv);
-  e.free = 0u;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
-    e.att[u] /= sum;
     e.fx[u] = e.fy[u] = 0.f;
     if (u < e.n) {
       const float2 c = grid_centre(gp, lv, (4 * sub + u) / P);
       e.fx[u] = c.x + fminf(fmaxf(ox[u], -lim), lim);
       e.fy[u] = c.y + fminf(fmaxf(oy[u], -lim), lim);
-      e.free |= (fabsf(ox[u]) < lim ? 1u : 0u) << u | (fabsf(oy[u]) < lim ? 1u : 0u) << (4 + u);
     }
   }
   return e;
@@ -120,109 +101,8 @@ msda_enc_fused_kernel(const T* __restrict__ value, const T* __restrict__ off,
   store8(out + bq * row + h * 32 + sub * 8, acc);
 }
 
-// Kernel 1 backward (replaces msda_enc_pallas.py _bwd_kernel).  Same quad
-// layout; the prologue is recomputed.  dvalue is accumulated by f32 vector
-// atomics into gvalue (zeroed by the caller): the scalar weight of a corner
-// is the same in the whole quad, so for the atomics thread s adds to
-// channels 4s .. 4s + 3 and 16 + 4s .. 16 + 4s + 3 (whose output gradient
-// it loads once), and each atomic instruction of the quad covers 64
-// contiguous bytes.  doff is the sampling derivative where |off| < lim (the
-// Pallas kernel's strict clamp mask, :471) and 0 where the offset was
-// clamped; dlogits goes through the head's softmax: att * (gatt -
-// sum(att * gatt)).
-template <typename T>
-__global__ void __launch_bounds__(kEncThreads, 2)
-msda_enc_fused_bwd_kernel(const T* __restrict__ value, const T* __restrict__ off,
-                          const T* __restrict__ logits, const T* __restrict__ gout,
-                          float* __restrict__ gvalue, T* __restrict__ goff,
-                          T* __restrict__ glogits, int B, int S, int H,
-                          const __grid_constant__ Levels lv, int P, float lim, bool vec) {
-  const int64_t quad = ((int64_t)blockIdx.x * kEncThreads + threadIdx.x) >> 2;
-  if (quad >= (int64_t)B * S * H) return;
-  const int lane = threadIdx.x & 31, sub = lane & 3;
-  const unsigned qmask = 0xFu << (lane & ~3);
-  const int h = (int)(quad % H);
-  const int64_t bq = quad / H;
-  const int q = (int)(bq % S);
-  const int b = (int)(bq / S);
-  const EncQuad e = enc_prologue(off, logits, bq, q, H, h, lv, P, lim, sub, qmask, vec);
-
-  const int row = H * 32;
-  const T* vb = value + (int64_t)b * S * row + h * 32 + sub * 8;
-  float* gb = gvalue + (int64_t)b * S * row + h * 32 + sub * 4;
-  const T* gq = gout + bq * row + h * 32;
-  const int LP = lv.n * P;
-  float g[8], ga[8];  // channels 8s .. 8s + 7; 4s .. 4s + 3 and 16 + 4s .. 16 + 4s + 3
-  {
-    Row8<T> gr;
-    gr.load(gq + sub * 8);
-    gr.get(g);
-    float lo[4], hi[4];
-    load4(gq + sub * 4, lo, 4, true);
-    load4(gq + 16 + sub * 4, hi, 4, true);
-#pragma unroll
-    for (int d = 0; d < 4; ++d) ga[d] = lo[d], ga[4 + d] = hi[d];
-  }
-  float gatt[4] = {0.f, 0.f, 0.f, 0.f}, gx[4] = {0.f, 0.f, 0.f, 0.f}, gy[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (j >= LP) break;
-    const int src = (lane & ~3) | (j >> 2);
-    const float a = __shfl_sync(qmask, e.att[j & 3], src);
-    const float x = __shfl_sync(qmask, e.fx[j & 3], src);
-    const float y = __shfl_sync(qmask, e.fy[j & 3], src);
-    const int l = j / P;
-    const Corners c = corners(x, y, lv.h[l], lv.w[l]);
-    const int start = lv.start[l];
-    Row8<T> v[4];
-    load_corners(vb + start * row, row, c, v);
-    float pa, px, py;
-    quad_sample_dots(v, g, c.lx, c.ly, qmask, pa, px, py);
-    if (sub == (j >> 2)) {
-      gatt[j & 3] = pa;
-      gx[j & 3] = a * px;
-      gy[j & 3] = a * py;
-    }
-    if (a != 0.f) {  // the same in the whole quad
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (!((c.ok >> k) & 1u)) continue;
-        const float wk = a * c.weight(k);
-        float* p = gb + (start + c.index(k)) * row;
-        atomicAdd(reinterpret_cast<float4*>(p),
-                  make_float4(wk * ga[0], wk * ga[1], wk * ga[2], wk * ga[3]));
-        atomicAdd(reinterpret_cast<float4*>(p + 16),
-                  make_float4(wk * ga[4], wk * ga[5], wk * ga[6], wk * ga[7]));
-      }
-    }
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) s += e.att[u] * gatt[u];  // att = 0 past n
-  s += __shfl_xor_sync(qmask, s, 1);
-  s += __shfl_xor_sync(qmask, s, 2);
-  float gl[4], gox[4], goy[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    gl[u] = e.att[u] * (gatt[u] - s);
-    gox[u] = (e.free >> u) & 1u ? gx[u] : 0.f;
-    goy[u] = (e.free >> (4 + u)) & 1u ? gy[u] : 0.f;
-  }
-  const int64_t nlog = (int64_t)H * LP;
-  store4(glogits + bq * nlog + h * LP + 4 * sub, gl, e.n);
-  store4(goff + bq * 2 * nlog + h * LP + 4 * sub, gox, e.n);
-  store4(goff + bq * 2 * nlog + nlog + h * LP + 4 * sub, goy, e.n);
-}
-
 inline unsigned enc_blocks(int64_t quads) {
   return (unsigned)((quads + kEncQuads - 1) / kEncQuads);
-}
-
-// Whether a thread's 4 logits and offsets are one aligned vector load.
-inline bool enc_vec(int dtype, int LP, const void* off, const void* logits) {
-  const uintptr_t bytes = 4u * (dtype == kBF16 ? 2u : 4u);
-  return LP % 4 == 0 &&
-         ((reinterpret_cast<uintptr_t>(off) | reinterpret_cast<uintptr_t>(logits)) % bytes) == 0;
 }
 
 }  // namespace mdt
@@ -254,39 +134,6 @@ int mdt_msda_enc_fused(void* value, void* off, void* logits, void* out, int dtyp
     msda_enc_fused_kernel<float><<<grid, kEncThreads, 0, st>>>(
         static_cast<const float*>(value), static_cast<const float*>(off),
         static_cast<const float*>(logits), static_cast<float*>(out), B, S, H, lv, P, lim, vec);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// Kernel 1 backward.  value, off, logits as mdt_msda_enc_fused; gout
-// [B, S, H*32] (dtype); gvalue [B, S, H, 32] f32, zeroed by the caller;
-// goff, glogits shaped as off and logits (dtype).
-int mdt_msda_enc_fused_bwd(void* value, void* off, void* logits, void* gout, void* gvalue,
-                           void* goff, void* glogits, int dtype, int B, int S, int H, int D,
-                           int L, int P, void* hw, float lim, void* stream) {
-  if (D != 32 || L < 1 || L > kMaxLevels || L * P > 16 || !fits_int32(S, H))
-    return (int)cudaErrorInvalidValue;
-  if (!aligned16({value, gout, gvalue})) return (int)cudaErrorMisalignedAddress;
-  const Levels lv = make_levels(L, static_cast<const int*>(hw));
-  const unsigned grid = enc_blocks((int64_t)B * S * H);
-  if (grid == 0) return 0;
-  const bool vec = enc_vec(dtype, L * P, off, logits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    using T = __nv_bfloat16;
-    msda_enc_fused_bwd_kernel<T><<<grid, kEncThreads, 0, st>>>(
-        static_cast<const T*>(value), static_cast<const T*>(off),
-        static_cast<const T*>(logits), static_cast<const T*>(gout),
-        static_cast<float*>(gvalue), static_cast<T*>(goff), static_cast<T*>(glogits), B, S,
-        H, lv, P, lim, vec);
-  } else if (dtype == kF32) {
-    msda_enc_fused_bwd_kernel<float><<<grid, kEncThreads, 0, st>>>(
-        static_cast<const float*>(value), static_cast<const float*>(off),
-        static_cast<const float*>(logits), static_cast<const float*>(gout),
-        static_cast<float*>(gvalue), static_cast<float*>(goff), static_cast<float*>(glogits),
-        B, S, H, lv, P, lim, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

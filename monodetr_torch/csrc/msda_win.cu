@@ -1,5 +1,6 @@
-// Windowed deformable attention for encoder grid queries, the two opt-in
-// encoder kernels (msda_impl 'pallas' and 'sepwin'), forward and backward.
+// Windowed deformable attention for encoder grid queries: the two opt-in
+// encoder kernels (msda_impl 'pallas' and 'sepwin'), forward and backward,
+// and the backward of kernel 1 (msda_impl 'fused', the default).
 //
 // Kernel 5 (replaces monodetr_tpu/ops/msda_pallas.py:
 // ms_deform_attn_pallas_packed, fwd _fwd_kernel, bwd _bwd_kernel).  Bilinear
@@ -21,12 +22,30 @@
 // was clamped (strict bounds, as kernel 1's backward) and scales it by
 // (w, h).
 //
-// Both are kernel 1's function from other operands and share its quad core
-// (common.cuh): four threads per unit of work, thread s owning channels
-// 8s .. 8s + 7, every corner one 16-byte load per thread (bf16; two in
-// f32).  They differ only in their prologue (PackedSrc, LocSrc below); P
-// is 4, so the 4 points of one (query, head, level) are one float4 of each
-// operand.
+// Kernel 1's backward (replaces monodetr_tpu/ops/msda_enc_pallas.py:
+// ms_deform_attn_enc_fused, bwd _bwd_kernel; its forward is msda.cu).  The
+// same backward on kernel 1's raw operands, the offset and logit
+// projections, in three passes.  (1) msda_enc_fused_bwd_weights_kernel, a
+// quad per (b, q, h) as kernel 1's forward, softmaxes each head's logits
+// with the forward's arithmetic (common.cuh:quad_softmax) into an f32
+// scratch, and zeroes the f32 value gradient.  (2) The tile pass on
+// EncSrc: the clamp to +-lim around the query's static centre and its
+// strict mask are recomputed as kernel 1's forward computes them, and each
+// weight's gradient replaces the weight.  (3)
+// msda_enc_fused_bwd_softmax_kernel, a quad per (b, q, h): dlogits = att *
+// (gatt - sum(att * gatt)), over the gradients of all levels, which four
+// warps of the tile pass hold, and the value gradient rounded to bf16.  The
+// softmax has its own pass because inside the tile pass it sits on each
+// warp's critical path; at batch 16 on an H100 SXM at 700 W the tile pass
+// takes 2.02 ms (kernel 6's whole backward: 2.02), passes (1) and (3) 0.10
+// and 0.14 ms (chip_smoke.py).
+//
+// All three are kernel 1's function from other operands and share its quad
+// core (common.cuh): four threads per unit of work, thread s owning
+// channels 8s .. 8s + 7, every corner one 16-byte load per thread (bf16; two
+// in f32).  They differ only in their prologue (PackedSrc, LocSrc, EncSrc
+// below); P is 4, so the 4 points of one (query, head, level) are one
+// vector of each operand.
 //   Forward: a quad per (b, q, h), 64 quads a block (8 consecutive queries
 // x 8 heads); thread s reads level s's 4 points; common.cuh:quad_sample_sum.
 //   Backward: what bounded the first version was the value gradient, one
@@ -39,9 +58,10 @@
 // memory once (common.cuh: WinPlan, win_add, win_flush): 350 rows per head
 // for 5440 corner adds.  The tiling is the host's
 // (ops/msda_windowed.py:window_tiles): which queries a tile holds and where
-// its rectangles start the kernels read from its per-tile table.  The weight and position gradients are the four
-// dots of the output gradient with the corner rows, 8 channels a thread and
-// 2 quad shuffles each (quad_sample_dots).  The TPU kernels used the same
+// its rectangles start the kernels read from its per-tile table.  The
+// weight and position gradients are the four dots of the output gradient
+// with the corner rows, 8 channels a thread and 2 quad shuffles each
+// (quad_sample_dots).  The TPU kernels used the same
 // locality for strip DMAs; their hat functions and matmuls are not carried
 // over: they existed because TPU gathers are slow.
 //   What bounds them on the H100: the forward, the L1/L2 gather path, as
@@ -57,11 +77,20 @@ namespace mdt {
 
 constexpr int kWinQuads = 64;
 constexpr int kWinThreads = 4 * kWinQuads;
-// Both kernels fix H = 8 (the lane packing of kernel 5; ops/msda_pallas.py:
-// check_contract), so a token row is 256 elements, a compile-time stride:
-// a corner's neighbour is an immediate offset of its load.
+// The kernels fix H = 8 (the lane packing of kernel 5; ops/msda_pallas.py:
+// check_contract; kernels 1 and 6 refuse other head counts), so a token
+// row is 256 elements, a compile-time stride: a corner's neighbour is an
+// immediate offset of its load.
 constexpr int kWinHeads = 8;
 constexpr int kWinRow = kWinHeads * 32;
+
+// common.cuh:grid_centre in f32: pixel g of a level whose pixels are s
+// pixels of the sampled level, (g + 0.5) * s - 0.5.  Where the level ratios
+// are powers of two (kernels 5 and 6: the wrappers' contract), s and every
+// step are exact, and the result is the f64 formula rounded once.
+__device__ __forceinline__ float2 win_centre(const GridPos& g, float sx, float sy) {
+  return make_float2(((float)g.gx + 0.5f) * sx - 0.5f, ((float)g.gy + 0.5f) * sy - 0.5f);
+}
 
 // Kernel 5's operands.  fetch: the 4 points of (row bq, head h, level l),
 // lanes (l*H + h)*4 .. + 3, one float4 of each of att, fx, fy, as loaded;
@@ -84,6 +113,10 @@ struct PackedSrc {
     return Raw{__ldg(reinterpret_cast<const float4*>(att + i)),
                __ldg(reinterpret_cast<const float4*>(fx + i)),
                __ldg(reinterpret_cast<const float4*>(fy + i))};
+  }
+  __device__ __forceinline__ float2 centre(const GridPos&, float, float, const Levels&,
+                                           int) const {
+    return make_float2(0.f, 0.f);
   }
   __device__ __forceinline__ unsigned decode(const Raw& r, int, float2, const Levels&, float,
                                              float (&a)[4], float (&x)[4],
@@ -128,6 +161,10 @@ struct LocSrc {
                __ldg(reinterpret_cast<const float4*>(loc + 2 * i)),
                __ldg(reinterpret_cast<const float4*>(loc + 2 * i) + 1)};
   }
+  __device__ __forceinline__ float2 centre(const GridPos& gp, float sx, float sy, const Levels&,
+                                           int) const {
+    return win_centre(gp, sx, sy);
+  }
   __device__ __forceinline__ unsigned decode(const Raw& r, int l, float2 c, const Levels& lv,
                                              float lim, float (&a)[4], float (&x)[4],
                                              float (&y)[4]) const {
@@ -157,15 +194,69 @@ struct LocSrc {
   }
 };
 
-// common.cuh:grid_centre in f32: pixel g of a level whose pixels are s
-// pixels of the sampled level, (g + 0.5) * s - 0.5.  The level ratios are
-// powers of two (the wrappers' contract), so s and every step are exact,
-// and the result is the f64 formula rounded once.
-__device__ __forceinline__ float2 win_centre(const GridPos& g, float sx, float sy) {
-  return make_float2(((float)g.gx + 0.5f) * sx - 0.5f, ((float)g.gy + 0.5f) * sy - 0.5f);
-}
+// Kernel 1's operands (msda.cu): off [B, S, 2*H*L*4] ([x-block | y-block],
+// (h, l, p) order) in the input dtype, offsets in pixels of the sampled
+// level, and w [B, S, H*L*4] f32, the softmaxed weights that
+// msda_enc_fused_bwd_weights_kernel wrote (the bits of kernel 1's
+// forward).  fetch: the 4 weights and the x and y offsets of level l's
+// points.  decode: the position centre + clip(offset, -lim, lim), the
+// centre kernel 1's forward's (common.cuh:grid_centre, rounded once from
+// f64); bit u (4 + u) of the result says whether |x (y) offset| < lim
+// (msda_enc_pallas.py:471).  store: the weight gradient over its weight in
+// w, for the softmax kernel (only this quad reads the element, before its
+// thread p writes it: win_add's __syncwarp orders them); doff, 0 where the
+// offset was clamped.
+template <typename T>
+struct EncSrc {
+  const T* off;
+  float* w;
+  T* goff;
+  int H, L;
+  bool vec;  // every 4 offsets one aligned vector (common.cuh:enc_vec)
+  struct Raw {
+    float4 a;
+    float x[4], y[4];
+  };
 
-// The forward of both kernels: a quad per (b, q, h); thread s holds the 4
+  __device__ __forceinline__ Raw fetch(int64_t bq, int h, int l) const {
+    const int LP = L * 4;
+    const int64_t nlog = (int64_t)H * LP;
+    Raw r;
+    r.a = *reinterpret_cast<const float4*>(w + bq * nlog + h * LP + 4 * l);
+    const T* o = off + bq * 2 * nlog + h * LP + 4 * l;
+    load4(o, r.x, 4, vec);
+    load4(o + nlog, r.y, 4, vec);
+    return r;
+  }
+  __device__ __forceinline__ float2 centre(const GridPos& gp, float, float, const Levels& lv,
+                                           int l) const {
+    return grid_centre(gp, lv, l);
+  }
+  __device__ __forceinline__ unsigned decode(const Raw& r, int, float2 c, const Levels&, float lim,
+                                             float (&a)[4], float (&x)[4],
+                                             float (&y)[4]) const {
+    a[0] = r.a.x, a[1] = r.a.y, a[2] = r.a.z, a[3] = r.a.w;
+    unsigned free = 0u;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      x[u] = c.x + fminf(fmaxf(r.x[u], -lim), lim);
+      y[u] = c.y + fminf(fmaxf(r.y[u], -lim), lim);
+      free |= (unsigned)(fabsf(r.x[u]) < lim) << u | (unsigned)(fabsf(r.y[u]) < lim) << (4 + u);
+    }
+    return free;
+  }
+  __device__ __forceinline__ void store(int64_t bq, int h, int l, int p, const Levels&, float ga,
+                                        float gx, float gy, unsigned free) const {
+    const int LP = L * 4;
+    const int64_t nlog = (int64_t)H * LP;
+    w[bq * nlog + h * LP + 4 * l + p] = ga;
+    T* o = goff + bq * 2 * nlog + h * LP + 4 * l + p;
+    o[0] = from_f32<T>((free >> p) & 1u ? gx : 0.f);
+    o[nlog] = from_f32<T>((free >> (4 + p)) & 1u ? gy : 0.f);
+  }
+};
+
+// The forward of kernels 5 and 6: a quad per (b, q, h); thread s holds the 4
 // points of level s, which are samples 4s .. 4s + 3 of quad_sample_sum.
 template <typename T, typename Src>
 __device__ __forceinline__ void win_forward(const T* __restrict__ value, T* __restrict__ out,
@@ -195,7 +286,7 @@ __device__ __forceinline__ void win_forward(const T* __restrict__ value, T* __re
   store8(out + bq * row + h * 32 + sub * 8, acc);
 }
 
-// The backward of both kernels.  The warp for (head, level l) of the block
+// The backward of the three kernels.  The warp for (head, level l) of the block
 // walks its tile's query slots 8 at a time, a quad per query: the quad's 4
 // points are in level l; the next point's corner rows are loaded before
 // the current point's value gradient is summed (win_add), so the loads are
@@ -230,7 +321,8 @@ __device__ __forceinline__ void win_backward(const T* __restrict__ value,
     float g[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     unsigned free = 0u;
     if (active) {
-      free = src.decode(src.fetch(bq, t.h, t.l), t.l, win_centre(gp, sx, sy), lv, lim, a, x, y);
+      free = src.decode(src.fetch(bq, t.h, t.l), t.l, src.centre(gp, sx, sy, lv, t.l), lv, lim,
+                        a, x, y);
       Row8<T> gr;
       gr.load(gq + sub * 8);
       gr.get(g);
@@ -301,6 +393,82 @@ msda_sepwin_bwd_kernel(const T* __restrict__ value, const float* __restrict__ lo
                        const int* __restrict__ tiles, float lim) {
   win_backward(value, gout, gvalue, LocSrc{loc, attn, gloc, gattn, H, lv.n}, B, S, H, lv, plan,
                WinTiles{tiles}, lim);
+}
+
+// Kernel 1's backward, first pass: the weights, a quad per (b, q, h), 64 a
+// block, as kernel 1's forward; thread s softmaxes samples 4s .. 4s + 3
+// with the head's (common.cuh:quad_softmax, the forward's bits) into w,
+// and zeroes its 8 channels of the f32 value gradient's row (b, q, h).
+template <typename T>
+__global__ void __launch_bounds__(kWinThreads)
+msda_enc_fused_bwd_weights_kernel(const T* __restrict__ logits, float* __restrict__ w,
+                                  float* __restrict__ gvalue, int64_t heads, int LP, bool vec) {
+  const int64_t quad = ((int64_t)blockIdx.x * kWinThreads + threadIdx.x) >> 2;
+  if (quad >= heads) return;  // whole quads exit together
+  const int lane = threadIdx.x & 31, sub = lane & 3;
+  const int n = min(max(LP - 4 * sub, 0), 4);
+  const int64_t i = quad * LP + 4 * sub;
+  float att[4];
+  load4(logits + i, att, n, vec);
+  quad_softmax(att, n, 0xFu << (lane & ~3));
+  if (n == 4)
+    *reinterpret_cast<float4*>(w + i) = make_float4(att[0], att[1], att[2], att[3]);
+  else
+    store4(w + i, att, n);
+  const float zero[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  store8(gvalue + quad * 32 + sub * 8, zero);
+}
+
+// Second pass: the tile sums (win_backward) on EncSrc.
+template <typename T>
+__global__ void __launch_bounds__(kWinThreads, 2)
+msda_enc_fused_bwd_tiles_kernel(const T* __restrict__ value, const T* __restrict__ off,
+                                const T* __restrict__ gout, float* __restrict__ gvalue,
+                                float* __restrict__ w, T* __restrict__ goff, int B, int S, int H,
+                                const __grid_constant__ Levels lv,
+                                const __grid_constant__ WinPlan plan,
+                                const int* __restrict__ tiles, float lim, bool vec) {
+  win_backward(value, gout, gvalue, EncSrc<T>{off, w, goff, H, lv.n, vec}, B, S, H, lv,
+               plan, WinTiles{tiles}, lim);
+}
+
+// Third pass, the softmax's backward: a quad per (b, q, h) as the first;
+// thread s recomputes the weights of samples 4s .. 4s + 3 (the first pass's
+// bits), reads their gradients from w and writes dlogits = att * (gatt -
+// sum(att * gatt)), the sum over the head's samples by 2 quad shuffles;
+// where dvalue is given (bf16), it rounds its 8 channels of the f32 value
+// gradient's row (b, q, h) into it.
+template <typename T>
+__global__ void __launch_bounds__(kWinThreads)
+msda_enc_fused_bwd_softmax_kernel(const T* __restrict__ logits, const float* __restrict__ gatt,
+                                  T* __restrict__ glogits, const float* __restrict__ gvalue,
+                                  T* __restrict__ dvalue, int64_t heads, int LP, bool vec) {
+  const int64_t quad = ((int64_t)blockIdx.x * kWinThreads + threadIdx.x) >> 2;
+  if (quad >= heads) return;  // whole quads exit together
+  const int lane = threadIdx.x & 31, sub = lane & 3;
+  const unsigned qmask = 0xFu << (lane & ~3);
+  const int n = min(max(LP - 4 * sub, 0), 4);
+  const int64_t i = quad * LP + 4 * sub;
+  float att[4], ga[4];
+  load4(logits + i, att, n, vec);
+  quad_softmax(att, n, qmask);
+  load4(gatt + i, ga, n, true);
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) s += att[u] * ga[u];  // att = 0 past n
+  s += __shfl_xor_sync(qmask, s, 1);
+  s += __shfl_xor_sync(qmask, s, 2);
+  float gl[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) gl[u] = att[u] * (ga[u] - s);
+  store4(glogits + i, gl, n);
+  if (dvalue != nullptr) {
+    Row8<float> g;
+    g.load(gvalue + quad * 32 + sub * 8);
+    float x[8];
+    g.get(x);
+    store8(dvalue + quad * 32 + sub * 8, x);
+  }
 }
 
 // The quad layout needs D = 32 and P = 4 (a float4 of points); a forward
@@ -457,8 +625,55 @@ int mdt_msda_sepwin_bwd(void* value, void* loc, void* attn, void* gout, void* gv
   return (int)cudaErrorInvalidValue;
 }
 
-// How many blocks of a backward kernel (kernel: 5 or 6) an SM holds at the
-// plan's launch shape, by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// Kernel 1 backward.  value, off, logits as msda.cu:mdt_msda_enc_fused, at
+// H = 8 and P = 4; gout [B, S, H*32] (dtype); gvalue [B, S, H, 32] f32,
+// scratch (the passes zero and sum it), and the value gradient itself in
+// f32; dvalue: for bf16, the value gradient [B, S, H, 32] rounded from it;
+// w [B, S, H*L*P] f32, scratch: the weights, then their gradients; goff,
+// glogits shaped as off and logits (dtype); plan and tiles as
+// mdt_msda_pallas_bwd.  Three launches: the weights (and the zeroing), the
+// tile sums, the softmax's backward (and the rounding).
+int mdt_msda_enc_fused_bwd_tiles(void* value, void* off, void* logits, void* gout, void* gvalue,
+                                 void* dvalue, void* w, void* goff, void* glogits, int dtype,
+                                 int B, int S, int H, int D, int L, int P, void* hw, void* plan,
+                                 void* tiles, float lim, void* stream) {
+  if (bad_shape(S, H, D, L, P)) return (int)cudaErrorInvalidValue;
+  if (!aligned16({value, gout, gvalue, w}) || (dtype == kBF16 && !aligned16({dvalue})))
+    return (int)cudaErrorMisalignedAddress;
+  if ((dtype == kBF16) != (dvalue != nullptr)) return (int)cudaErrorInvalidValue;
+  const Levels lv = make_levels(L, static_cast<const int*>(hw));
+  const WinPlan wp = make_win_plan(static_cast<const int*>(plan));
+  const int* tl = static_cast<const int*>(tiles);
+  if (!win_plan_ok(wp, L, H) || tl == nullptr) return (int)cudaErrorInvalidValue;
+  const WinLaunch launch = win_launch(wp, B, H, L);
+  if (launch.grid == 0) return 0;
+  const bool vec = enc_vec(dtype, L * P, off, logits);
+  const int64_t heads = (int64_t)B * S * H;
+  float *wf = static_cast<float*>(w), *gv = static_cast<float*>(gvalue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    const T* lg = static_cast<const T*>(logits);
+    msda_enc_fused_bwd_weights_kernel<T><<<win_blocks(heads), kWinThreads, 0, st>>>(
+        lg, wf, gv, heads, L * P, vec);
+    int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    rc = launch_win_bwd(msda_enc_fused_bwd_tiles_kernel<T>, launch, st,
+                        static_cast<const T*>(value), static_cast<const T*>(off),
+                        static_cast<const T*>(gout), gv, wf,
+                        static_cast<T*>(goff), B, S, H, lv, wp, tl, lim, vec);
+    if (rc != 0) return rc;
+    msda_enc_fused_bwd_softmax_kernel<T><<<win_blocks(heads), kWinThreads, 0, st>>>(
+        lg, wf, static_cast<T*>(glogits), gv, static_cast<T*>(dvalue), heads, L * P, vec);
+    return (int)cudaGetLastError();
+  };
+  if (dtype == kBF16) return run(__nv_bfloat16{});
+  if (dtype == kF32) return run(0.f);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many blocks of a backward's tile pass (kernel: 1, 5 or 6) an SM holds
+// at the plan's launch shape, by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
 // and the shared bytes a block asks for.
 int mdt_msda_win_bwd_occupancy(int kernel, int dtype, int L, void* plan, int* blocks_per_sm,
                                int* smem_bytes) {
@@ -472,6 +687,8 @@ int mdt_msda_win_bwd_occupancy(int kernel, int dtype, int L, void* plan, int* bl
       rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k, threads, smem);
     return (int)rc;
   };
+  if (kernel == 1 && dtype == kBF16) return ask(msda_enc_fused_bwd_tiles_kernel<__nv_bfloat16>);
+  if (kernel == 1 && dtype == kF32) return ask(msda_enc_fused_bwd_tiles_kernel<float>);
   if (kernel == 5 && dtype == kBF16) return ask(msda_pallas_bwd_kernel<__nv_bfloat16>);
   if (kernel == 5 && dtype == kF32) return ask(msda_pallas_bwd_kernel<float>);
   if (kernel == 6 && dtype == kBF16) return ask(msda_sepwin_bwd_kernel<__nv_bfloat16>);

@@ -3,11 +3,17 @@ prologue (per-head softmax, window clamp, static centres) inside the kernel.
 
 Counterpart of monodetr_tpu/ops/msda_enc_pallas.py:ms_deform_attn_enc_fused,
 same signature and offset feature order.  The CUDA kernel is
-csrc/msda.cu:msda_enc_fused_kernel, its backward msda_enc_fused_bwd_kernel
-(an autograd.Function joins them); `ms_deform_attn_enc_fused_plain` is
-their plain PyTorch version (softmax -> clip to +-lim -> exact MSDA at
-centre + offset, the composition of tests/test_msda_enc_fused.py:oracle),
-whose gradients come from autograd.
+csrc/msda.cu:msda_enc_fused_kernel; its backward is the windowed tile sums
+of kernels 5 and 6 on kernel 1's operands, csrc/msda_win.cu:
+msda_enc_fused_bwd_tiles_kernel, between a pass that softmaxes the logits
+and one that takes the softmax's backward (an autograd.Function joins
+them).  `ms_deform_attn_enc_fused_plain` is their plain PyTorch version
+(softmax -> clip to +-lim -> exact MSDA at centre + offset, the
+composition of tests/test_msda_enc_fused.py:oracle), whose gradients come
+from autograd.  The backward's tiling (ops/msda_windowed.py:window_tiles)
+takes 8 heads of 32 channels, 4 points and at most 4 levels; the forward
+refuses what it cannot take, so a shape is refused before anything runs,
+never switched to another kernel.
 """
 
 import numpy as np
@@ -57,8 +63,10 @@ def _split(value, spatial_shapes, off, logits):
     return B, S, H, D, L, LP // L
 
 
-def ms_deform_attn_enc_fused_plain(value, spatial_shapes, off, logits,
-                                   window=8):
+def enc_samples(value, spatial_shapes, off, logits, window=8):
+    """(fx, fy, att), each [B, S, H, L, P] f32: the pixel positions and
+    weights that kernel 1 samples with, centre + clip(offset, +-lim) and
+    each head's softmax over its L*P logits."""
     B, S, H, D, L, P = _split(value, spatial_shapes, off, logits)
     att = torch.softmax(logits.float().view(B, S, H, L * P), -1)
     lim = window_limit(window)
@@ -68,24 +76,36 @@ def ms_deform_attn_enc_fused_plain(value, spatial_shapes, off, logits,
     c = device_constant(grid_centers, (tuple(spatial_shapes),), value.device)
     fx = c[None, :, None, :, None, 0] + ox
     fy = c[None, :, None, :, None, 1] + oy
-    return ms_deform_attn_px(value, spatial_shapes, fx, fy,
-                             att.view(B, S, H, L, P))
+    return fx, fy, att.view(B, S, H, L, P)
 
 
-def _check(name, value, spatial_shapes, off, logits):
+def ms_deform_attn_enc_fused_plain(value, spatial_shapes, off, logits,
+                                   window=8):
+    return ms_deform_attn_px(value, spatial_shapes,
+                             *enc_samples(value, spatial_shapes, off, logits, window))
+
+
+def _check(name, value, spatial_shapes, off, logits, window):
+    """The shapes both directions take, or ValueError: the backward's
+    (heads, channels, points) = (8, 32, 4) and a tiling of the pyramid and
+    window whose block fits shared memory (at most 4 levels)."""
+    from .msda_windowed import window_tiles
+
     _build.require_cuda(name, value, off, logits)
     if not value.dtype == off.dtype == logits.dtype:
         raise TypeError(f"{name}: value, off and logits must share a dtype")
     B, S, H, D, L, P = _split(value, spatial_shapes, off, logits)
-    if L * P > 16:
-        raise ValueError(f"{name}: the kernel takes at most 16 samples per head, "
-                         f"got {L} levels x {P} points")
+    if (H, D, P) != (8, 32, 4):
+        raise ValueError(f"{name}: the kernels take 8 heads of 32 channels and 4 points "
+                         f"per level, got {H} heads of {D} and {P} points; use msda_impl "
+                         f"'gather'")
+    window_tiles(spatial_shapes, window)  # ValueError where the backward cannot tile
     return B, S, H, D, L, P
 
 
 def _launch_fwd(value, spatial_shapes, off, logits, window):
     name = "ms_deform_attn_enc_fused"
-    B, S, H, D, L, P = _check(name, value, spatial_shapes, off, logits)
+    B, S, H, D, L, P = _check(name, value, spatial_shapes, off, logits, window)
     out = torch.empty(B, S, H * D, dtype=value.dtype, device=value.device)
     _build.launch(
         "mdt_msda_enc_fused", value.data_ptr(), off.data_ptr(),
@@ -98,26 +118,39 @@ def _launch_fwd(value, spatial_shapes, off, logits, window):
 
 def ms_deform_attn_enc_fused_bwd(value, spatial_shapes, off, logits, gout,
                                  window=8):
-    """The backward kernel (csrc/msda.cu:msda_enc_fused_bwd_kernel) on CUDA
-    tensors: (dvalue, doff, dlogits) in the inputs' dtype for the output
-    gradient `gout` [B, S, H*D].  dvalue is summed in f32 by atomics."""
+    """The backward kernels (csrc/msda_win.cu: msda_enc_fused_bwd_weights_,
+    _tiles_ and _softmax_kernel) on CUDA tensors: (dvalue, doff, dlogits)
+    in the inputs' dtype for the output gradient `gout` [B, S, H*D].  The
+    first pass writes the softmaxed weights to an f32 [B, S, H*L*P] scratch
+    and zeroes an f32 dvalue; the tile pass reads the weights, sums dvalue
+    per tile of queries in shared memory (ops/msda_windowed.py:
+    window_tiles), then row by row by vector atomics, writes doff (0 where
+    the offset was clamped) and the weights' gradients over the weights;
+    the last makes dlogits and rounds dvalue to bf16 where that is the
+    dtype.  No other launch."""
+    from .msda_windowed import window_plan_args
+
     name = "ms_deform_attn_enc_fused_bwd"
-    B, S, H, D, L, P = _check(name, value, spatial_shapes, off, logits)
+    B, S, H, D, L, P = _check(name, value, spatial_shapes, off, logits, window)
+    plan, tiles = window_plan_args(spatial_shapes, window, value.device)
     gout = gout.contiguous()
     if gout.shape != (B, S, H * D) or gout.dtype != value.dtype:
         raise ValueError(f"{name}: gout {tuple(gout.shape)} {gout.dtype}")
     _build.require_cuda(name, value, gout)
-    gvalue = torch.zeros(B, S, H, D, dtype=torch.float32, device=value.device)
+    gvalue = torch.empty(B, S, H, D, dtype=torch.float32, device=value.device)
+    dvalue = gvalue if value.dtype == torch.float32 else torch.empty_like(value)
+    w = torch.empty(logits.shape, dtype=torch.float32, device=value.device)
     goff = torch.empty_like(off)
     glogits = torch.empty_like(logits)
     _build.launch(
-        "mdt_msda_enc_fused_bwd", value.data_ptr(), off.data_ptr(),
-        logits.data_ptr(), gout.data_ptr(), gvalue.data_ptr(), goff.data_ptr(),
-        glogits.data_ptr(), _build.dtype_code(value.dtype), B, S, H, D, L, P,
-        _build.levels_arg(spatial_shapes), window_limit(window),
-        _build.stream_of(value))
+        "mdt_msda_enc_fused_bwd_tiles", value.data_ptr(), off.data_ptr(),
+        logits.data_ptr(), gout.data_ptr(), gvalue.data_ptr(),
+        None if dvalue is gvalue else dvalue.data_ptr(), w.data_ptr(),
+        goff.data_ptr(), glogits.data_ptr(), _build.dtype_code(value.dtype),
+        B, S, H, D, L, P, _build.levels_arg(spatial_shapes), plan, tiles,
+        window_limit(window), _build.stream_of(value))
     ms_deform_attn_enc_fused_bwd.launches += 1
-    return gvalue.to(value.dtype), goff, glogits
+    return dvalue, goff, glogits
 
 
 class _EncFused(torch.autograd.Function):
@@ -146,9 +179,10 @@ def ms_deform_attn_enc_fused(value, spatial_shapes, off, logits, window=8):
     Returns [B, S, H*D] in value.dtype: per head, softmax over the L*P
     logits, then bilinear samples (zero padding) at centre +
     clip(offset, +-(G/2 - 1 - 0.01)) in every level.  Differentiable in
-    value, off and logits: on CUDA the backward is the kernel
+    value, off and logits: on CUDA the backward is the kernels of
     `ms_deform_attn_enc_fused_bwd`, on the CPU autograd through the plain
-    version.
+    version.  On CUDA, ValueError for a shape the backward cannot take
+    (see _check), with or without a gradient.
     """
     if value.device.type == "cpu":
         return ms_deform_attn_enc_fused_plain(value, spatial_shapes, off,

@@ -9,10 +9,11 @@ plain MSDA re-normalising pixel positions for grid_sample), 3e-2 in bf16
 (outputs rounded to bf16 at values of order 1).  Gradients are compared as
 max |a - b| / (1 + max |b|): 1e-4 in f32 (the value gradients are summed by
 atomics in another order), 3e-2 in bf16.  The LAP kernel is bit-identical
-to its plain version.  Kernels 5 and 6 sum their value gradient per tile
-of queries in shared memory and add each staged row to device memory by
-atomics, so it repeats from run to run to 1e-6 of its maximum, not bit for
-bit.  Kernels 5-7 (the opt-in MSDA impls 'pallas',
+to its plain version.  The backwards of kernels 1, 5 and 6 sum their
+value gradient per tile of queries in shared memory and add each staged
+row to device memory by atomics, so it repeats from run to run to 1e-6 of
+its maximum, not bit for bit; kernel 1's is also held at G = 8, with
+every sample at its window's bound, and to its refusals.  Kernels 5-7 (the opt-in MSDA impls 'pallas',
 'sepwin' and 'dense_fused') are held to the same bounds, and kernel 7's
 value gradient, written without atomics, is bit-identical from run to run.
 Kernels 2 and 7 are also held to their plain version at 32 samples per head,
@@ -58,6 +59,8 @@ FULL_SHAPES = ((48, 160), (24, 80), (12, 40), (6, 20))
 # at 384x1280: its last two levels are equal
 STRESS_SHAPES = ((96, 320), (48, 160), (24, 80), (12, 40))
 DILATED_SHAPES = ((48, 160), (24, 80), (24, 80), (12, 40))
+# a 376x1248 image's pyramid: level ratios that are not powers of two
+ODD_SHAPES = ((47, 156), (24, 78), (12, 39), (6, 20))
 DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)]
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
@@ -402,14 +405,14 @@ def grads_of(fn, inputs, g):
     return [x.grad for x in xs]
 
 
-def enc_inputs(shapes, B, dtype, seed):
+def enc_inputs(shapes, B, dtype, seed, window=6):
     """Offsets are odd multiples of 1/32, some beyond the window (clamped
-    to +-1.99): the grid centres are multiples of 1/16 at levels that
-    halve, so every sample sits >= 0.01 px from an integer position, where
-    the one-sided bilinear derivative would jump (ROADMAP.md C3)."""
+    to +-1.99 at G = 6): the grid centres are multiples of 1/16 at levels
+    that halve, so every sample sits >= 0.01 px from an integer position,
+    where the one-sided bilinear derivative would jump (ROADMAP.md C3)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     S = sum(h * w for h, w in shapes)
-    lim = window_limit(6)
+    lim = window_limit(window)
     value = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
     off = (torch.rand(B, S, 256, generator=g, device="cuda") * 2 - 1) * (lim + 1)
     off = ((torch.floor(off * 16) * 2 + 1) / 32).to(dtype)
@@ -419,7 +422,8 @@ def enc_inputs(shapes, B, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES, STRESS_SHAPES, DILATED_SHAPES])
+@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES, STRESS_SHAPES, DILATED_SHAPES,
+                                    ODD_SHAPES])
 def test_enc_fused_backward_kernel(cuda, dtype, shapes):
     (value, off, logits), g = enc_inputs(shapes, 2, dtype, 3)
     before = ms_deform_attn_enc_fused_bwd.launches
@@ -430,6 +434,75 @@ def test_enc_fused_backward_kernel(cuda, dtype, shapes):
                     (value, off, logits), g)
     for a, b in zip(got, want):
         assert a.dtype == dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes", [SHAPES, FULL_SHAPES, STRESS_SHAPES, DILATED_SHAPES,
+                                    ODD_SHAPES])
+def test_enc_fused_backward_kernel_at_g8(cuda, dtype, shapes):
+    """The backward at G = 8: another tiling of every pyramid (at the full
+    one a tile is half a pixel of the coarsest level across)."""
+    (value, off, logits), g = enc_inputs(shapes, 2, dtype, 4, window=8)
+    got = grads_of(lambda *x: ms_deform_attn_enc_fused(x[0], shapes, x[1], x[2], 8),
+                   (value, off, logits), g)
+    want = grads_of(lambda *x: ms_deform_attn_enc_fused_plain(x[0], shapes, x[1], x[2], 8),
+                    (value, off, logits), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [6, 8])
+def test_enc_fused_backward_kernel_clustered_at_the_bound(cuda, dtype, window):
+    """Every offset 1/32 to 1 px beyond the window, so every sample sits at
+    one of the four corners of its query's window: the 4 points of a level
+    share few positions and neighbouring queries' corners meet, so many
+    samples add to the same staged rows.  Every offset was clamped, so
+    doff is 0."""
+    (value, off, logits), g = enc_inputs(FULL_SHAPES, 2, dtype, 5, window)
+    lim = window_limit(window)
+    off = (torch.sign(off.float()) * (lim + 1 / 32 + off.float().abs() % 1)).to(dtype)
+    got = grads_of(lambda *x: ms_deform_attn_enc_fused(x[0], FULL_SHAPES, x[1], x[2], window),
+                   (value, off, logits), g)
+    want = grads_of(lambda *x: ms_deform_attn_enc_fused_plain(x[0], FULL_SHAPES, x[1], x[2],
+                                                              window),
+                    (value, off, logits), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+    assert (got[1] == 0).all()
+
+
+def test_enc_fused_refuses_what_the_backward_cannot_tile(cuda):
+    """Kernel 1 refuses at forward time, with or without a gradient, a head
+    count, a pyramid or a window that its backward's tiling cannot take;
+    nothing is launched in its place."""
+    before = (ms_deform_attn_enc_fused.launches, ms_deform_attn_enc_fused_bwd.launches)
+    S = sum(h * w for h, w in FULL_SHAPES)
+    for heads in (4, 16):  # 8 heads of 32 channels a token row
+        value = torch.zeros(1, S, heads, D, device=cuda)
+        off = torch.zeros(1, S, 2 * heads * L * P, device=cuda)
+        logits = torch.zeros(1, S, heads * L * P, device=cuda)
+        with pytest.raises(ValueError, match="8 heads"):
+            ms_deform_attn_enc_fused(value, FULL_SHAPES, off, logits, 6)
+    five = FULL_SHAPES + ((3, 10),)  # a fifth level: more than a block has warps for
+    S5 = S + 30
+    value = torch.zeros(1, S5, H, D, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="at most 4 levels"):
+        ms_deform_attn_enc_fused(value, five, torch.zeros(1, S5, 2 * H * 5 * P, device=cuda),
+                                 torch.zeros(1, S5, H * 5 * P, device=cuda), 6)
+    value = torch.zeros(1, S, H, D, device=cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="shared memory"):
+        ms_deform_attn_enc_fused(value, FULL_SHAPES, torch.zeros(1, S, 2 * H * L * P, device=cuda),
+                                 torch.zeros(1, S, H * L * P, device=cuda), 64)
+    assert before == (ms_deform_attn_enc_fused.launches, ms_deform_attn_enc_fused_bwd.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_enc_fused_backward_shares_an_sm(cuda, dtype):
+    """Kernel 1's tile pass asks for the tiling's shared memory, as kernels
+    5 and 6 do, and the runtime places two of its blocks on an SM."""
+    blocks, smem = backward_occupancy(1, dtype, FULL_SHAPES, 6)
+    assert smem == window_tiles(FULL_SHAPES, 6).smem_bytes and blocks == 2
 
 
 def sep_locations(shape, shapes, gen):

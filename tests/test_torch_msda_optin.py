@@ -321,7 +321,9 @@ def test_profile_groups_name_each_msda_kernel():
     "msda_sep"), so the order of the groups decides."""
     from monodetr_torch.profile_train import group_of
 
-    want = {"msda_enc_fused_kernel": "kernel 1", "msda_enc_fused_bwd_kernel": "kernel 1",
+    want = {"msda_enc_fused_kernel": "kernel 1", "msda_enc_fused_bwd_weights_kernel": "kernel 1",
+            "msda_enc_fused_bwd_tiles_kernel": "kernel 1",
+            "msda_enc_fused_bwd_softmax_kernel": "kernel 1",
             "msda_sep_kernel": "kernel 2", "msda_sep_bwd_kernel": "kernel 2",
             "msda_pallas_kernel": "kernel 5", "msda_pallas_bwd_kernel": "kernel 5",
             "msda_sepwin_kernel": "kernel 6", "msda_sepwin_bwd_kernel": "kernel 6",
