@@ -1,0 +1,9 @@
+"""Device ms per profiled training step of the kernels attributed to the
+visual encoder (models/transformer.py), its deformable attention included,
+backward kernels to their forward range."""
+
+from bench_h100.core.readers import component_ms
+
+
+def read(record):
+    return component_ms(record, "train", ("encoder", "encoder MSDA"))

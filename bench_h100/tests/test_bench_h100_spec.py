@@ -1,0 +1,105 @@
+"""BENCHMARK.json and the files it names: the allowed characters and keys,
+every cell's files found by name, a mix added without editing a file, and
+what the benchmark's modules may import."""
+
+import ast
+import json
+import re
+import shutil
+from pathlib import Path
+
+import pytest
+
+from bench_h100.core import spec
+
+REPO = Path(__file__).resolve().parents[2]
+BENCH = REPO / "bench_h100"
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+@pytest.fixture(scope="module")
+def bench():
+    return json.loads((REPO / "BENCHMARK.json").read_text())
+
+
+def test_keys_names_and_units(bench):
+    assert set(bench) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    for c in bench["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert NAME.match(c["name"]) and all(NAME.match(k) for k in c["reduced"])
+    for w in bench["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] == 1
+        assert len(w["why"]) <= 200
+    metrics = bench["end_to_end"] + bench["per_layer"]
+    assert len({m["name"] for m in metrics}) == len(metrics)
+    for m in metrics:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+    for m in bench["end_to_end"]:
+        assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
+    assert any(m["name"] == "setup_s" for m in bench["end_to_end"])
+
+
+def test_per_layer_cells_report_what_they_move(bench):
+    cells = {w["name"] for w in bench["workloads"]}
+    e2e = {m["name"]: set(m.get("workloads", cells)) for m in bench["end_to_end"]}
+    for m in bench["per_layer"]:
+        assert set(m["workloads"]) <= e2e[m["moves"]], m["name"]
+    for cell in cells:
+        assert sum(cell in ws for ws in e2e.values()) >= 2
+        assert any(cell in m["workloads"] for m in bench["per_layer"])
+
+
+def test_every_cell_and_metric_found_by_name(bench):
+    for w in bench["workloads"]:
+        work, config, mix, limits, e2e, per_layer = spec.cell(w["name"], REPO)
+        assert config["name"] == w["config"] and mix["kind"] in ("train", "stream")
+        assert limits["limits"]
+        for m in e2e + per_layer:
+            assert callable(spec.reader(m["name"], BENCH))
+    for c in bench["configs"]:
+        assert c["file"].startswith("bench_h100/") and (REPO / c["file"]).is_file()
+
+
+def test_a_mix_added_without_editing_any_file(tmp_path, bench):
+    root = tmp_path / "checkout"
+    shutil.copytree(BENCH, root / "bench_h100", ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "bench_h100" / "mixes" / "train_bs8.json").write_text(json.dumps(
+        dict(spec.load_mix("train_bs16"), batch=8)))
+    (root / "bench_h100" / "limits" / "r50.train_bs8.json").write_text(
+        (BENCH / "limits" / "r50.train_bs16.json").read_text())
+    added = dict(bench, workloads=bench["workloads"] + [
+        {"name": "r50.train_bs8", "config": "monodetr_r50_384x1280", "traffic": "train_bs8",
+         "chips": 1, "why": "a smaller batch"}])
+    (root / "BENCHMARK.json").write_text(json.dumps(added))
+    _, config, mix, _, e2e, _ = spec.cell("r50.train_bs8", root)
+    assert mix["batch"] == 8 and config["name"] == "monodetr_r50_384x1280"
+    assert [m["name"] for m in e2e] == ["setup_s"]
+
+
+def _top_level_imports(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_imports():
+    """No module of the benchmark imports the JAX side or bench.py, and the
+    reference imports nothing of the program; top-level names compared
+    whole (monodetr_torch begins with the letters of monodetr_tpu)."""
+    sources = sorted(BENCH.rglob("*.py"))
+    assert sources
+    for path in sources:
+        names = _top_level_imports(path)
+        assert not names & {"jax", "jaxlib", "flax", "monodetr_tpu", "bench"}, path
+        if "reference" in path.parts:
+            assert "monodetr_torch" not in names and "bench_h100" not in names, path
+    assert "monodetr_torch" in _top_level_imports(BENCH / "run.py") | set().union(
+        *(_top_level_imports(p) for p in (BENCH / "core").glob("*.py")))
