@@ -200,6 +200,7 @@ from monodetr_torch.ops.msda_sepwin import (  # noqa: E402
 from monodetr_torch.ops.msda_windowed import (  # noqa: E402
     WIN_HEADS, backward_occupancy, ms_deform_attn_windowed, window_bounds, window_tiles)
 from monodetr_torch.train.synthetic import SyntheticLoader  # noqa: E402
+from monodetr_torch.utils import trace  # noqa: E402
 
 LEVELS = ((48, 160), (24, 80), (12, 40), (6, 20))  # 384x1280 / 8, 16, 32, 64
 S = sum(h * w for h, w in LEVELS)
@@ -337,13 +338,19 @@ def attention_bound(direction, q, k, bytes_moved):
     return bound(bytes_moved, 2 * n * B * Hh * Tq * k.shape[2] * Dd, BF16_TC_FLOPS)
 
 
+# the kernels' launch counters (utils/trace.py) at the last reset_launches()
+LAUNCHES_AT_RESET = {}
+
+
 def reset_launches():
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    LAUNCHES_AT_RESET.clear()
+    LAUNCHES_AT_RESET.update(trace.counts())
 
 
 def read_launches():
-    return {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    """{kernel: launches since the last reset_launches()}."""
+    now = trace.counts()
+    return {name: now.get(name, 0) - LAUNCHES_AT_RESET.get(name, 0) for name in KERNELS}
 
 
 def phase_environment():

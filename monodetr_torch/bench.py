@@ -18,10 +18,11 @@ one synchronisation at its end (`--device cpu`: the host clock), and each
 gives B / (ms per step).  It runs on the card unless `--device cpu` is
 given; without a CUDA device it raises.
 
-Prints exactly one JSON line on stdout, bench.py's keys in its order:
+Prints exactly one JSON line on stdout, bench.py's keys in its order less
+its vs_baseline:
   {"metric": "train_throughput_{H}x{W}_bs{B}", "value": median img/s,
-   "unit": "img/s/chip", "vs_baseline": value / 55, "runs": [3 img/s],
-   "flops_per_img": GFLOP, "mfu": ...}
+   "unit": "img/s/chip", "runs": [3 img/s], "flops_per_img": GFLOP,
+   "mfu": ...}
 Everything else (the card's name and power limit, the configuration, the
 peak memory, the seconds the FLOP count took, the last loss) goes to
 stderr.
@@ -40,18 +41,6 @@ the bench.
 
 mfu: img/s / B x FLOPs per step / 989.4e12, the dense bf16 tensor-core
 peak of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
-
-vs_baseline: the reference publishes no throughput, so the A100
-denominator is an analytical upper bound (bench.py:14-25), derived as
-follows:
-  - train-step compute at bs16/384x1280 is ~450 GFLOP/img (fwd ~150:
-    ResNet-50 ~39 at this resolution + 3 encoder layers' FFN/proj soup
-    ~80 + depth/decoder attention ~30; x3 for fwd+bwd);
-  - a best-case A100 run of this irregular model (bf16 AMP, ~30% MFU on
-    94 TFLOP/s dense bf16 ... ~25 TFLOP/s sustained) gives
-    25e12 / 450e9 ~= 55 img/s.
-The reference as shipped is fp32 with a scipy-on-CPU matcher sync every
-step, so its real A100 throughput would be well below this bound.
 
 bench_env() reads bench.py's BENCH_* variables with its defaults, all but
 BENCH_RNG: that one picks a TPU dropout generator (rbg or threefry), and
@@ -74,14 +63,13 @@ from .models.monodetr import build_monodetr
 from .train.optimizer import build_optimizer
 from .train.train_step import batch_to_device, make_train_step
 
-A100_REF_IMG_PER_SEC = 55.0
 # dense bf16 tensor-core peak of one H100 SXM at 700 W (NVIDIA's data sheet)
 H100_BF16_PEAK_FLOPS = 989.4e12
 LR = 2e-4
 OPTIMIZER = {"type": "adamw", "lr": LR, "weight_decay": 1e-4}
 CRITERION = {"num_classes": 3, "dec_layers": 3, "group_num": 11}
 WARMUP_STEPS, WINDOWS, WINDOW_STEPS = 4, 3, 12
-KEYS = ("metric", "value", "unit", "vs_baseline", "runs", "flops_per_img", "mfu")
+KEYS = ("metric", "value", "unit", "runs", "flops_per_img", "mfu")
 
 
 def bench_env():
@@ -193,14 +181,14 @@ def card_line():
 
 
 def result_line(H, W, B, runs, flops_per_step):
-    """bench.py's JSON line (bench.py:158-170) as a dict, in its key order."""
+    """bench.py's JSON line (bench.py:158-170) less vs_baseline, as a dict,
+    in its key order."""
     img_per_sec = float(np.median(runs))
     mfu = img_per_sec / B * flops_per_step / H100_BF16_PEAK_FLOPS
     return {
         "metric": f"train_throughput_{H}x{W}_bs{B}",
         "value": round(img_per_sec, 2),
         "unit": "img/s/chip",
-        "vs_baseline": round(img_per_sec / A100_REF_IMG_PER_SEC, 3),
         "runs": [round(r, 2) for r in runs],
         "flops_per_img": round(flops_per_step / B / 1e9, 1),
         "mfu": round(mfu, 4),

@@ -13,6 +13,10 @@ allocator does not hand its memory to the side stream while the step still
 reads it.  Batch k+1's copy then overlaps step k's kernels, and nothing in
 the handoff makes the host wait for the card.  On the CPU the batches are
 converted in the consumer's thread, one at a time.
+
+The consumer's wait for each next batch (on the CPU, the loader's work) is
+the root span `data wait` (utils/trace.py); on a CUDA device each batch's
+`batch_to_device` is a root of the background thread.
 """
 
 import queue
@@ -21,10 +25,12 @@ import threading
 import torch
 
 from ..train.train_step import BATCH_KEYS, batch_to_device
+from ..utils.trace import span
 
 # batches whose copies may be queued ahead of the consumer: the next one,
 # and one more while the consumer takes it
 DEPTH = 2
+_END = object()
 
 
 class DevicePrefetcher:
@@ -42,7 +48,7 @@ class DevicePrefetcher:
 
     def __iter__(self):
         if self.device.type != "cuda":
-            for batch, infos in self.loader:
+            for batch, infos in waited(iter(self.loader)):
                 yield batch_to_device(batch, self.device, self.keys), batch, infos
             return
         yield from self._cuda_batches()
@@ -62,11 +68,22 @@ class DevicePrefetcher:
                     ready.record(side)
                     yield on_card, ready, batch, infos
 
-        for on_card, ready, batch, infos in in_background(staged, DEPTH):
+        for on_card, ready, batch, infos in waited(in_background(staged, DEPTH)):
             consumer.wait_event(ready)
             for t in on_card.values():
                 t.record_stream(consumer)
             yield on_card, batch, infos
+
+
+def waited(items):
+    """Yields the iterator's items, each fetch in a span `data wait`: a
+    root of the consumer's thread, outside the step that takes the item."""
+    while True:
+        with span("data wait"):
+            item = next(items, _END)
+        if item is _END:
+            return
+        yield item
 
 
 def in_background(make_items, depth):

@@ -16,6 +16,7 @@ import torch
 
 from ..ops import box_ops
 from ..ops.utils import class2angle_np
+from ..utils.trace import span
 
 CLASS_NAMES = ["Pedestrian", "Car", "Cyclist"]
 
@@ -53,41 +54,43 @@ def get_heading_angle(heading: np.ndarray) -> float:
 def decode_detections(dets: np.ndarray, info: Dict, calibs: List,
                       cls_mean_size: np.ndarray, threshold: float) -> Dict:
     """Per-image KITTI rows [cls_id, alpha, x1, y1, x2, y2, h, w, l, X, Y,
-    Z, ry, score] of the detections scoring at least `threshold`."""
-    results = {}
-    for i in range(dets.shape[0]):
-        preds = []
-        for j in range(dets.shape[1]):
-            cls_id = int(dets[i, j, 0])
-            score = dets[i, j, 1]
-            if score < threshold:
-                continue
+    Z, ry, score] of the detections scoring at least `threshold`; a
+    root span `decode` of the host's time (utils/trace.py)."""
+    with span("decode"):
+        results = {}
+        for i in range(dets.shape[0]):
+            preds = []
+            for j in range(dets.shape[1]):
+                cls_id = int(dets[i, j, 0])
+                score = dets[i, j, 1]
+                if score < threshold:
+                    continue
 
-            x = dets[i, j, 2] * info["img_size"][i][0]
-            y = dets[i, j, 3] * info["img_size"][i][1]
-            w = dets[i, j, 4] * info["img_size"][i][0]
-            h = dets[i, j, 5] * info["img_size"][i][1]
-            bbox = [x - w / 2, y - h / 2, x + w / 2, y + h / 2]
+                x = dets[i, j, 2] * info["img_size"][i][0]
+                y = dets[i, j, 3] * info["img_size"][i][1]
+                w = dets[i, j, 4] * info["img_size"][i][0]
+                h = dets[i, j, 5] * info["img_size"][i][1]
+                bbox = [x - w / 2, y - h / 2, x + w / 2, y + h / 2]
 
-            depth = dets[i, j, 6]
-            dimensions = dets[i, j, 31:34] + cls_mean_size[cls_id]
+                depth = dets[i, j, 6]
+                dimensions = dets[i, j, 31:34] + cls_mean_size[cls_id]
 
-            x3d = dets[i, j, 34] * info["img_size"][i][0]
-            y3d = dets[i, j, 35] * info["img_size"][i][1]
-            locations = calibs[i].img_to_rect(
-                np.array([x3d]), np.array([y3d]), np.array([depth])
-            ).reshape(-1)
-            locations[1] += dimensions[0] / 2
+                x3d = dets[i, j, 34] * info["img_size"][i][0]
+                y3d = dets[i, j, 35] * info["img_size"][i][1]
+                locations = calibs[i].img_to_rect(
+                    np.array([x3d]), np.array([y3d]), np.array([depth])
+                ).reshape(-1)
+                locations[1] += dimensions[0] / 2
 
-            alpha = get_heading_angle(dets[i, j, 7:31])
-            ry = calibs[i].alpha2ry(alpha, x)
+                alpha = get_heading_angle(dets[i, j, 7:31])
+                ry = calibs[i].alpha2ry(alpha, x)
 
-            score = score * dets[i, j, -1]
-            preds.append(
-                [cls_id, alpha] + bbox + dimensions.tolist()
-                + locations.tolist() + [ry, score]
-            )
-        results[info["img_id"][i]] = preds
+                score = score * dets[i, j, -1]
+                preds.append(
+                    [cls_id, alpha] + bbox + dimensions.tolist()
+                    + locations.tolist() + [ry, score]
+                )
+            results[info["img_id"][i]] = preds
     return results
 
 

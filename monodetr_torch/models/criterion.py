@@ -25,7 +25,7 @@ from ..ops import box_ops
 from ..ops.losses import (dim_aware_l1_loss, laplacian_aleatoric_uncertainty_loss,
                           sigmoid_focal_loss)
 from ..ops.utils import bin_depths
-from ..utils.misc import component
+from ..utils.trace import span
 from .matcher import hungarian_match
 
 LAYER_KEYS = ("pred_logits", "pred_boxes", "pred_3d_dim", "pred_depth", "pred_angle")
@@ -232,7 +232,7 @@ class SetCriterion:
             n_targets = dp.sum(n_targets)
         num_boxes = (n_targets * group_num).clamp(min=1.0)
         aux = outputs.get("aux_outputs", [])
-        with component("matcher"):
+        with span("matcher"):
             matched = self.match(outputs, targets, train)
         losses = {}
         for i, layer in enumerate(aux + [outputs]):

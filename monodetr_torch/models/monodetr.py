@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.utils import grid_sample_bilinear, inverse_sigmoid
-from ..utils.misc import component
+from ..utils.trace import span
 from .backbone import BACKBONE_NUM_CHANNELS, FrozenBatchNorm2d, ResNetBackbone
 from .depth_predictor import DepthPredictor
 from .layers import MLP, MultiheadAttention, conv_gn, forward_dtype
@@ -119,7 +119,7 @@ class MonoDETR(nn.Module):
         dtype = forward_dtype(images.device, self.depthaware_transformer.level_embed.dtype)
         # NHWC memory seen as NCHW: channels_last, no copy
         x = images.to(dtype).permute(0, 3, 1, 2)
-        with component("backbone"):
+        with span("backbone"):
             feats = self.backbone[0](x)
         srcs = [self.input_proj[i](feats[i]) for i in range(3)]
         srcs.append(self.input_proj[3](feats[2]))
@@ -131,7 +131,7 @@ class MonoDETR(nn.Module):
             pos = [sine_pos_table(s.shape[2], s.shape[3], self.hidden_dim, images.device)[None]
                    .expand(B, -1, -1, -1) for s in srcs]
 
-        with component("depth predictor"):
+        with span("depth predictor"):
             depth_logits, depth_tokens, weighted_depth, _ = self.depth_predictor(
                 srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype), gen)
 

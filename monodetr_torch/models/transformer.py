@@ -32,7 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.utils import device_constant, inverse_sigmoid
-from ..utils.misc import component
+from ..utils.trace import span
 from .layers import (MLP, LayerNorm, MultiheadAttention, checkpoint_with_gen, dropout, ffn,
                      forward_dtype)
 from .msda_module import MSDeformAttn
@@ -155,11 +155,11 @@ class VisualEncoderLayer(nn.Module):
     def forward(self, src, pos, reference_points, spatial_shapes, gen=None):
         attn = self.self_attn
         if not (self.remat and torch.is_grad_enabled()):
-            with component("encoder MSDA"):
+            with span("encoder MSDA"):
                 op, args = attn.sampling(src + pos, reference_points, src, spatial_shapes)
                 sampled = op(*args)
             return self._after_sampling(src, sampled, gen)
-        with component("encoder MSDA"):
+        with span("encoder MSDA"):
             op, args = checkpoint(
                 lambda s, q: attn.sampling(s + q, reference_points, s, spatial_shapes), src, pos,
                 use_reentrant=False, preserve_rng_state=False)
@@ -201,12 +201,12 @@ class DepthAwareDecoderLayer(nn.Module):
         self-attention runs within each group of num_queries."""
         p = self.dropout
         # (1) depth cross-attention: raw tgt queries x depth tokens (:456-462)
-        with component("decoder depth cross-attention"):
+        with span("decoder depth cross-attention"):
             tgt2 = self.cross_attn_depth(tgt, depth_embed, depth_embed, gen)
         tgt = self.norm_depth(tgt + dropout(tgt2, p, gen))
         # (2) self-attention (:465-503); both projections of each pair read
         # tgt + query_pos, as in JAX
-        with component("decoder self-attention"):
+        with span("decoder self-attention"):
             qk = tgt + query_pos
             q = self.sa_qcontent_proj(qk) + self.sa_qpos_proj(qk)
             k = self.sa_kcontent_proj(qk) + self.sa_kpos_proj(qk)
@@ -221,7 +221,7 @@ class DepthAwareDecoderLayer(nn.Module):
                 tgt2 = self.self_attn(q, k, tgt, gen)
         tgt = self.norm2(tgt + dropout(tgt2, p, gen))
         # (3) deformable cross-attention into the encoder memory (:506-508)
-        with component("decoder MSDA"):
+        with span("decoder MSDA"):
             tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes)
         tgt = self.norm1(tgt + dropout(tgt2, p, gen))
         return ffn(tgt, self.linear1, self.linear2, self.norm3, p, gen)
@@ -309,7 +309,7 @@ class DepthAwareTransformer(nn.Module):
 
         enc_ref = device_constant(encoder_reference_points, (spatial_shapes,), memory.device)
         enc_ref = enc_ref[None, :, None, :].expand(B, -1, len(spatial_shapes), 2)
-        with component("encoder"):
+        with span("encoder"):
             for layer in self.encoder.layers:
                 memory = layer(memory, pos_flat, enc_ref, spatial_shapes, gen)
 
@@ -365,7 +365,7 @@ class DepthAwareTransformer(nn.Module):
         per_layer_query_pos = self.use_dab or self.two_stage_dino
 
         hs, refs_in, dims = [], [], []
-        with component("decoder"):
+        with span("decoder"):
             for lid, layer in enumerate(self.decoder.layers):
                 ref_dim = reference_points.shape[-1]
                 ref_input = reference_points[:, :, None, :].expand(-1, -1, len(spatial_shapes),

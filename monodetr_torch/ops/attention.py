@@ -18,6 +18,7 @@ draw, so that the two can be held against each other with dropout on.
 import torch
 
 from .. import _build
+from ..utils.trace import count
 
 
 def attention_plain(q, k, v, scale, keep=None, dropout_p=0.0):
@@ -69,7 +70,7 @@ def _launch_fwd(q, k, v, seed_t, scale, dropout_p):
         out.data_ptr(), lse.data_ptr(), _build.dtype_code(q.dtype), B * H, Tq, Tk,
         D, float(scale), seed_t.data_ptr() if thr else None, thr,
         _build.stream_of(q))
-    fused_attention.launches += 1
+    count("attention_fwd")
     return out, lse
 
 
@@ -93,7 +94,7 @@ def fused_attention_bwd(q, k, v, out, lse, gout, seed, scale, dropout_p):
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _build.dtype_code(q.dtype),
         B * H, Tq, Tk, D, float(scale),
         seed_t.data_ptr() if thr else None, thr, _build.stream_of(q))
-    fused_attention_bwd.launches += 1
+    count("attention_bwd")
     return dq, dk, dv
 
 
@@ -143,7 +144,3 @@ def fused_attention(q, k, v, seed, scale, dropout_p):
         return attention_plain(q, k, v, scale, keep, dropout_p)
     seed_t = _seed_arg(seed, q.device) if dropout_p > 0.0 else None
     return _Attention.apply(q, k, v, seed_t, float(scale), float(dropout_p))
-
-
-fused_attention.launches = 0
-fused_attention_bwd.launches = 0

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.trace import count
 
 INF = 1e18  # lap_solve's "infinity"
 
@@ -118,11 +119,8 @@ def lap_solve(cost, row_valid):
     out = torch.empty(*lead, N, dtype=torch.int32, device=cost.device)
     _build.launch("mdt_lap", c.data_ptr(), rv.data_ptr(), out.data_ptr(),
                   out.numel() // N if N else 0, N, _build.stream_of(c))
-    lap_solve.launches += 1
+    count("lap")
     return out
-
-
-lap_solve.launches = 0
 
 
 def lap_step_latencies(iters=1024):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.trace import count
 from .msda import ms_deform_attn
 from .msda_sep import check_loc_args
 
@@ -132,7 +133,7 @@ def _launch_fwd(value, spatial_shapes, sampling_locations, attention_weights):
         "mdt_msda_dense_fused", value.data_ptr(), sampling_locations.data_ptr(),
         attention_weights.data_ptr(), out.data_ptr(), _build.dtype_code(value.dtype),
         B, S, Q, H, D, L, P, _build.levels_arg(spatial_shapes), _build.stream_of(value))
-    ms_deform_attn_dense_fused.launches += 1
+    count("msda_dense_fused")
     return out
 
 
@@ -163,7 +164,7 @@ def ms_deform_attn_dense_fused_bwd(value, spatial_shapes, sampling_locations,
         gattn.data_ptr(), entries.data_ptr(), table.data_ptr(), _build.dtype_code(value.dtype),
         B, S, Q, H, D, L, P, _build.levels_arg(spatial_shapes),
         _bins_arg(bins), _build.stream_of(value))
-    ms_deform_attn_dense_fused_bwd.launches += 1
+    count("msda_dense_fused_bwd")
     return gvalue, gloc, gattn
 
 
@@ -192,7 +193,3 @@ def ms_deform_attn_dense_fused(value, spatial_shapes, sampling_locations,
                                     attention_weights)
     return _DenseFused.apply(value, sampling_locations, attention_weights,
                              tuple(spatial_shapes))
-
-
-ms_deform_attn_dense_fused.launches = 0
-ms_deform_attn_dense_fused_bwd.launches = 0

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.trace import count
 from .msda import ms_deform_attn_px
 from .utils import device_constant
 
@@ -112,7 +113,7 @@ def _launch_fwd(value, spatial_shapes, off, logits, window):
         logits.data_ptr(), out.data_ptr(), _build.dtype_code(value.dtype),
         B, S, H, D, L, P, _build.levels_arg(spatial_shapes),
         window_limit(window), _build.stream_of(value))
-    ms_deform_attn_enc_fused.launches += 1
+    count("msda_enc_fused")
     return out
 
 
@@ -149,7 +150,7 @@ def ms_deform_attn_enc_fused_bwd(value, spatial_shapes, off, logits, gout,
         goff.data_ptr(), glogits.data_ptr(), _build.dtype_code(value.dtype),
         B, S, H, D, L, P, _build.levels_arg(spatial_shapes), plan, tiles,
         window_limit(window), _build.stream_of(value))
-    ms_deform_attn_enc_fused_bwd.launches += 1
+    count("msda_enc_fused_bwd")
     return dvalue, goff, glogits
 
 
@@ -188,7 +189,3 @@ def ms_deform_attn_enc_fused(value, spatial_shapes, off, logits, window=8):
         return ms_deform_attn_enc_fused_plain(value, spatial_shapes, off,
                                               logits, window)
     return _EncFused.apply(value, off, logits, tuple(spatial_shapes), window)
-
-
-ms_deform_attn_enc_fused.launches = 0
-ms_deform_attn_enc_fused_bwd.launches = 0

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.trace import count
 from .msda import ms_deform_attn_px
 from .msda_enc import grid_centers, window_limit
 from .msda_windowed import (check_grid_contract, clamp_to_window, window_plan_args,
@@ -110,7 +111,7 @@ def _launch_fwd(value, spatial_shapes, fx, fy, att, window):
         "mdt_msda_pallas", value.data_ptr(), fx.data_ptr(), fy.data_ptr(), att.data_ptr(),
         out.data_ptr(), _build.dtype_code(value.dtype), B, S, H, D, L, P,
         _build.levels_arg(spatial_shapes), _build.stream_of(value))
-    ms_deform_attn_pallas_packed.launches += 1
+    count("msda_pallas")
     return out
 
 
@@ -137,7 +138,7 @@ def ms_deform_attn_pallas_packed_bwd(value, spatial_shapes, fx, fy, att, gout, w
         gatt.data_ptr(), _build.dtype_code(value.dtype), B, S, H, D, L, P,
         _build.levels_arg(spatial_shapes), plan, tiles, window_limit(window),
         _build.stream_of(value))
-    ms_deform_attn_pallas_packed_bwd.launches += 1
+    count("msda_pallas_bwd")
     return gvalue.to(value.dtype), gfx, gfy, gatt
 
 
@@ -179,7 +180,3 @@ def ms_deform_attn_pallas(value, spatial_shapes, sampling_locations, attention_w
                    sampling_locations.shape[1], sampling_locations.shape[4], window)
     fx, fy, att = pack(spatial_shapes, sampling_locations, attention_weights, window)
     return ms_deform_attn_pallas_packed(value, spatial_shapes, fx, fy, att, window)
-
-
-ms_deform_attn_pallas_packed.launches = 0
-ms_deform_attn_pallas_packed_bwd.launches = 0

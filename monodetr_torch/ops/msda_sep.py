@@ -17,6 +17,7 @@ takes a second round of 16 samples in the same kernel.
 import torch
 
 from .. import _build
+from ..utils.trace import count
 from .msda import ms_deform_attn
 
 MAX_SAMPLES = 32  # csrc/msda_loc.cu:kMaxSamples
@@ -73,7 +74,7 @@ def _launch_fwd(value, spatial_shapes, sampling_locations, attention_weights):
         attention_weights.data_ptr(), out.data_ptr(),
         _build.dtype_code(value.dtype), B, S, Q, H, D, L, P,
         _build.levels_arg(spatial_shapes), _build.stream_of(value))
-    ms_deform_attn_sep.launches += 1
+    count("msda_sep")
     return out
 
 
@@ -97,7 +98,7 @@ def ms_deform_attn_sep_bwd(value, spatial_shapes, sampling_locations,
         attention_weights.data_ptr(), gout.data_ptr(), gvalue.data_ptr(),
         gloc.data_ptr(), gattn.data_ptr(), _build.dtype_code(value.dtype),
         B, S, Q, H, D, L, P, _build.levels_arg(spatial_shapes), _build.stream_of(value))
-    ms_deform_attn_sep_bwd.launches += 1
+    count("msda_sep_bwd")
     return gvalue.to(value.dtype), gloc, gattn
 
 
@@ -127,7 +128,3 @@ def ms_deform_attn_sep(value, spatial_shapes, sampling_locations,
                               attention_weights)
     return _Sep.apply(value, sampling_locations, attention_weights,
                       tuple(spatial_shapes))
-
-
-ms_deform_attn_sep.launches = 0
-ms_deform_attn_sep_bwd.launches = 0

@@ -13,6 +13,7 @@ where the position was not clamped.
 import torch
 
 from .. import _build
+from ..utils.trace import count
 from .msda_enc import window_limit
 from .msda_pallas import check_contract
 from .msda_sep import check_loc_args
@@ -36,7 +37,7 @@ def _launch_fwd(value, spatial_shapes, sampling_locations, attention_weights, wi
         attention_weights.data_ptr(), out.data_ptr(), _build.dtype_code(value.dtype),
         B, S, H, D, L, P, _build.levels_arg(spatial_shapes), window_limit(window),
         _build.stream_of(value))
-    ms_deform_attn_sepwin.launches += 1
+    count("msda_sepwin")
     return out
 
 
@@ -66,7 +67,7 @@ def ms_deform_attn_sepwin_bwd(value, spatial_shapes, sampling_locations, attenti
         gattn.data_ptr(), _build.dtype_code(value.dtype), B, S, H, D, L, P,
         _build.levels_arg(spatial_shapes), plan, tiles, window_limit(window),
         _build.stream_of(value))
-    ms_deform_attn_sepwin_bwd.launches += 1
+    count("msda_sepwin_bwd")
     return gvalue.to(value.dtype), gloc, gattn
 
 
@@ -100,7 +101,3 @@ def ms_deform_attn_sepwin(value, spatial_shapes, sampling_locations, attention_w
                                        attention_weights, window)
     return _Sepwin.apply(value, sampling_locations, attention_weights,
                          tuple(spatial_shapes), window)
-
-
-ms_deform_attn_sepwin.launches = 0
-ms_deform_attn_sepwin_bwd.launches = 0

@@ -33,6 +33,9 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the kernels of the step whose launches the report gives (utils/trace.py's counters)
+COUNTED = ("msda_enc_fused", "msda_enc_fused_bwd", "msda_sep", "msda_sep_bwd", "attention_fwd",
+           "attention_bwd", "lap")
 
 
 def free_port():
@@ -171,13 +174,10 @@ def _compare_body(args):
     from ..eval.decode import extract_dets_from_outputs
     from ..models.criterion import SetCriterion
     from ..models.monodetr import build_monodetr
-    from ..ops.attention import fused_attention, fused_attention_bwd
-    from ..ops.lap import lap_solve
-    from ..ops.msda_enc import ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd
-    from ..ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd
     from ..train.optimizer import build_optimizer
     from ..train.synthetic import SyntheticLoader
     from ..train.train_step import TARGET_KEYS, batch_to_device, make_train_step
+    from ..utils import trace
     from .ddp import DataParallel, init_distributed, make_parallel_eval_step, rank_device
 
     torch.set_num_threads(1)
@@ -193,10 +193,6 @@ def _compare_body(args):
     whole = batch_to_device(batch, dev)
     mine = batch_to_device({k: dp.shard(v) for k, v in batch.items()}, dev)
     crit = SetCriterion(cfg)
-    counted = {"msda_enc_fused": ms_deform_attn_enc_fused,
-               "msda_enc_fused_bwd": ms_deform_attn_enc_fused_bwd, "msda_sep": ms_deform_attn_sep,
-               "msda_sep_bwd": ms_deform_attn_sep_bwd, "attention_fwd": fused_attention,
-               "attention_bwd": fused_attention_bwd, "lap": lap_solve}
 
     model = build_monodetr(cfg, seed=rank).to(dev)  # rank 0's weights come by broadcast
     dp.broadcast_(model)
@@ -207,10 +203,10 @@ def _compare_body(args):
     all_shares = dp.gather(torch.stack([shares[k] for k in keys])[None])
     dets = make_parallel_eval_step(model, dp)(mine["images"], mine["calibs"], mine["img_sizes"])
     step = make_train_step(model, crit, build_optimizer(opt_cfg, model), dp=dp)
-    for fn in counted.values():
-        fn.launches = 0
     losses = step(mine, lr).as_dict()
-    launches = {name: fn.launches for name, fn in counted.items()}
+    # the port kernels the step launched, forward and backward (its span's counts)
+    counted = trace.last("train step", 1)[0].counts
+    launches = {name: counted.get(name, 0) for name in COUNTED}
     flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
     ref = flat.clone()
     dist.broadcast(ref, 0)

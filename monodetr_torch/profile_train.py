@@ -28,7 +28,7 @@ without it sees.  The Chrome trace is written to <out>/train_trace.json.
 With --by-component the profiled window's device time is also split by
 the parts of the step that tools/profile_step.py:COMPONENTS names
 (COMPONENTS below): each kernel goes to the innermost profiler range of
-utils/misc.py:component around the operator that launched it, and a
+utils/trace.py:span around the operator that launched it, and a
 kernel of the backward to the range of the forward operator that made its
 autograd node (the node's sequence number and forward thread).
 Needs a CUDA card.
@@ -48,7 +48,7 @@ from .models.transformer import QUERY_VARIANTS
 from .train.optimizer import build_optimizer
 from .train.synthetic import SyntheticLoader
 from .train.train_step import batch_to_device, make_train_step
-from .utils.misc import COMPONENT_PREFIX
+from .utils.trace import COMPONENT_PREFIX
 
 TIMED_STEPS = 30
 # kernel-name substrings -> group, first match wins
@@ -90,13 +90,16 @@ GROUPS = (
 )
 
 
-# the ranges of utils/misc.py:component in the step (a kernel outside all
-# of them is "other": input projections, position tables, the query
-# variants' proposals, the heads after the decoder, the loss sum's
-# backward, data parallel's all-reduce)
-COMPONENTS = ("backbone", "depth predictor", "encoder", "encoder MSDA", "decoder",
-              "decoder self-attention", "decoder MSDA", "decoder depth cross-attention",
-              "matcher", "criterion", "optimizer")
+# the spans of utils/trace.py in the step, outermost first: `forward` keeps
+# what no span of the model holds (input projections, position tables, the
+# query variants' proposals, the heads after the decoder), `train step` the
+# loss stacking and data parallel's all-reduce; a kernel outside every span
+# is "other" (the backward's work that no forward operator made, on the
+# autograd engine's thread)
+COMPONENTS = ("train step", "forward", "backbone", "depth predictor", "encoder",
+              "encoder MSDA", "decoder", "decoder self-attention", "decoder MSDA",
+              "decoder depth cross-attention", "matcher", "criterion", "backward",
+              "optimizer")
 BACKWARD_FUNCTION = 1  # at::RecordScope of an autograd node's backward
 # the autograd engine's range around a node's backward and the reduction of
 # its gradients to their inputs' shapes; it carries the node's sequence number

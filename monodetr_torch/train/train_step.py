@@ -13,12 +13,20 @@ is the JAX SPMD step's (monodetr_tpu/parallel/mesh.py:53-92): each rank
 runs its slice of the global batch, its losses are its shares of the
 global batch's (models/criterion.py), the gradients and the loss vector are
 summed over ranks, and every rank takes the same optimizer step.
+
+Host time (utils/trace.py): a step is the root span `train step`, whose
+children are `forward` (the autocast model call, with the model's spans
+inside), `criterion` (the matcher inside), `backward` (the call that
+returns once the card has the backward's launches queued) and `optimizer`;
+zero_grad, data parallel's gradient sum and the loss stacking are the
+root's own time.  `batch_to_device` and the eval step (`eval step`: the
+eval forward and the top-k) are roots of their own.
 """
 
 import numpy as np
 import torch
 
-from ..utils.misc import component
+from ..utils.trace import span
 
 TARGET_KEYS = ("labels", "boxes", "boxes_3d", "depth", "size_3d", "heading_bin",
                "heading_res", "mask")
@@ -37,12 +45,13 @@ def batch_to_device(batch, device, keys=BATCH_KEYS):
     arrays are taken as they are (a CPU-only build cannot pin)."""
     device = torch.device(device)
     out = {}
-    for k in keys:
-        t = torch.from_numpy(np.ascontiguousarray(batch[k], bool if k == "mask" else None))
-        if device.type == "cuda":
-            out[k] = t.pin_memory().to(device, non_blocking=True)
-        else:
-            out[k] = t.to(device)
+    with span("batch_to_device"):
+        for k in keys:
+            t = torch.from_numpy(np.ascontiguousarray(batch[k], bool if k == "mask" else None))
+            if device.type == "cuda":
+                out[k] = t.pin_memory().to(device, non_blocking=True)
+            else:
+                out[k] = t.to(device)
     return out
 
 
@@ -56,25 +65,28 @@ def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32, dp
     autocast = compute_dtype != torch.float32
 
     def train_step(batch, lr, gen=None):
-        model.train()
-        device = batch["images"].device
-        with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
-            out = model(batch["images"], batch["calibs"], batch["img_sizes"], train=True,
-                        gen=gen)
-        with component("criterion"):
-            losses = criterion(out, {k: batch[k] for k in TARGET_KEYS}, train=True, dp=dp)
-            total = criterion.total(losses)
-        optimizer.zero_grad()
-        total.backward()
-        if dp is not None:
-            dp.sum_grads(optimizer.params)
-        with component("optimizer"):
-            optimizer.step(lr)
-        keys = sorted(losses)
-        if not loss_keys:
-            loss_keys.extend(keys + ["loss_detr"])
-        stacked = torch.stack([losses[k].detach().float() for k in keys] + [total.detach()])
-        return LossVector(tuple(loss_keys), stacked if dp is None else dp.sum(stacked))
+        with span("train step"):
+            model.train()
+            device = batch["images"].device
+            with span("forward"):
+                with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
+                    out = model(batch["images"], batch["calibs"], batch["img_sizes"],
+                                train=True, gen=gen)
+            with span("criterion"):
+                losses = criterion(out, {k: batch[k] for k in TARGET_KEYS}, train=True, dp=dp)
+                total = criterion.total(losses)
+            optimizer.zero_grad()
+            with span("backward"):
+                total.backward()
+            if dp is not None:
+                dp.sum_grads(optimizer.params)
+            with span("optimizer"):
+                optimizer.step(lr)
+            keys = sorted(losses)
+            if not loss_keys:
+                loss_keys.extend(keys + ["loss_detr"])
+            stacked = torch.stack([losses[k].detach().float() for k in keys] + [total.detach()])
+            return LossVector(tuple(loss_keys), stacked if dp is None else dp.sum(stacked))
 
     return train_step
 
@@ -88,8 +100,9 @@ def make_eval_step(model, topk=50, threshold=0.2):
 
     @torch.no_grad()
     def eval_step(images, calibs, img_sizes):
-        model.eval()
-        return extract_dets_from_outputs(model(images, calibs, img_sizes), topk=topk)
+        with span("eval step"):
+            model.eval()
+            return extract_dets_from_outputs(model(images, calibs, img_sizes), topk=topk)
 
     return eval_step
 

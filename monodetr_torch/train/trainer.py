@@ -2,7 +2,9 @@
 lib/helpers/trainer_helper.py): the epoch loop with a per-epoch numpy
 reseed (:74), pretrain merge and resume (:44-63), checkpoint saves (latest
 or per epoch, and the best by Car-moderate AP3D_R40, :86-108) with the
-in-loop Tester, a log line every 30 batches with img/s, and an optional
+in-loop Tester, a log line every 30 batches with img/s and the host's ms
+a step in each phase of the step and in the wait for data (the spans of
+utils/trace.py, over the batches since the line before), and an optional
 torch.profiler trace of a few steps.  With data parallel (`dp`,
 parallel/ddp.py) every rank runs the loop on its slice of each global
 batch, and only rank 0 writes checkpoints and evaluates.
@@ -20,7 +22,11 @@ from .optimizer import build_optimizer
 from .scheduler import lr_at_epoch
 from .train_step import make_train_step
 from ..data.device_prefetch import DevicePrefetcher
+from ..utils import trace
 from ..utils.misc import is_main_process
+
+# the train step's child spans that the log line reports
+PHASES = ("forward", "criterion", "backward", "optimizer")
 
 
 class Trainer:
@@ -129,6 +135,7 @@ class Trainer:
         # batch k+1's copy to the card overlaps step k; the loss read every
         # 30 batches is the loop's one wait for the card
         batches = DevicePrefetcher(self.train_loader, self.device)
+        logged = -1
         for batch_idx, (on_card, batch, _infos) in enumerate(batches):
             if profile_steps and batch_idx == 2:
                 prof = self._start_profile()
@@ -142,10 +149,11 @@ class Trainer:
                 dt = time.time() - t0
                 main = {k: v for k, v in values.items()
                         if not any(k.endswith(f"_{i}") for i in range(6))}
-                self.logger.info("epoch %d batch %d | loss_detr %.2f | %s | %.1f img/s" % (
+                self.logger.info("epoch %d batch %d | loss_detr %.2f | %s | %.1f img/s | %s" % (
                     epoch, batch_idx, values.get("loss_detr", 0.0),
                     ", ".join(f"{k} {v:.2f}" for k, v in sorted(main.items())),
-                    world * n_imgs / dt if dt > 0 else 0))
+                    world * n_imgs / dt if dt > 0 else 0, host_line(batch_idx - logged)))
+                logged = batch_idx
         if prof is not None:
             self._stop_profile(prof)
         if self.device.type == "cuda":
@@ -172,3 +180,13 @@ class Trainer:
         self.logger.info("profiler trace written to %s\n%s" % (out, prof.key_averages().table(
             sort_by="self_cuda_time_total" if self.device.type == "cuda" else "self_cpu_time_total",
             row_limit=25)))
+
+
+def host_line(n):
+    """The host's ms a step in each of PHASES and in `data wait`, over the
+    last n train steps and waits for data (the spans' ring)."""
+    steps, waits = trace.last("train step", n), trace.last("data wait", n)
+    phases = [(name, sum(r.spans.get(name, 0) for r in steps) / max(len(steps), 1))
+              for name in PHASES]
+    phases.append(("data wait", sum(r.end_ns - r.start_ns for r in waits) / max(len(waits), 1)))
+    return "host ms/step " + ", ".join(f"{name} {ns / 1e6:.1f}" for name, ns in phases)

@@ -3,16 +3,10 @@ lib/helpers/utils_helper.py parity; monodetr_tpu/utils/misc.py with
 torch.distributed's rank where the JAX package asks for its process
 index)."""
 
-import contextlib
 import logging
 import random
 
 import numpy as np
-import torch
-
-# the profiler ranges of profile_train --by-component
-# (tools/profile_step.py:COMPONENTS)
-COMPONENT_PREFIX = "component::"
 
 
 def create_logger(log_file, rank=0):
@@ -37,16 +31,6 @@ def is_main_process():
     import torch.distributed as dist
 
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
-
-
-def component(name):
-    """A torch.profiler range named COMPONENT_PREFIX + `name` around one
-    part of the training step, read by profile_train --by-component; a
-    no-op unless a profiler records (record_function alone costs ~12 us
-    of host time a range, the check ~0.2 us)."""
-    if torch._C._autograd._profiler_enabled():
-        return torch.profiler.record_function(COMPONENT_PREFIX + name)
-    return contextlib.nullcontext()
 
 
 def set_random_seed(seed):

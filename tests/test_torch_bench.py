@@ -14,9 +14,9 @@
   is not a prefix), port against JAX: the losses at test_torch_train.py's
   tolerance (rtol 1e-4).
 - main(["--device", "cpu"]) with a 1+1-layer model, 1 warm-up step and
-  3 windows of 1 step prints one stdout line, bench.py's keys in its
-  order, 3 positive runs; without a card and without --device cpu it
-  raises.
+  3 windows of 1 step prints one stdout line, bench.KEYS (bench.py's keys
+  less vs_baseline) in their order, 3 positive runs; without a card and
+  without --device cpu it raises.
 """
 
 import json
@@ -172,7 +172,7 @@ def test_main_prints_bench_py_s_line_on_the_cpu(monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 1
     line = json.loads(lines[-1])
-    assert list(line) == list(bench.KEYS)
+    assert list(line) == list(bench.KEYS) and "vs_baseline" not in line
     assert line["metric"] == "train_throughput_64x128_bs2" and line["unit"] == "img/s/chip"
     assert len(line["runs"]) == 3 and all(r > 0 for r in line["runs"])
     assert line["value"] == round(float(np.median(line["runs"])), 2)

@@ -49,6 +49,7 @@ from monodetr_torch.ops.msda_sep import fits_int32, ms_deform_attn_sep, ms_defor
 from monodetr_torch.ops.msda_sepwin import ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd
 from monodetr_torch.ops.msda_windowed import (backward_occupancy, ms_deform_attn_windowed,
                                               window_tiles)
+from monodetr_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -63,6 +64,22 @@ DILATED_SHAPES = ((48, 160), (24, 80), (24, 80), (12, 40))
 ODD_SHAPES = ((47, 156), (24, 78), (12, 39), (6, 20))
 DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)]
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# each kernel wrapper's launch counter (utils/trace.py)
+COUNTER = {
+    ms_deform_attn_enc_fused: "msda_enc_fused", ms_deform_attn_enc_fused_bwd: "msda_enc_fused_bwd",
+    ms_deform_attn_sep: "msda_sep", ms_deform_attn_sep_bwd: "msda_sep_bwd",
+    fused_attention: "attention_fwd", fused_attention_bwd: "attention_bwd", lap_solve: "lap",
+    ms_deform_attn_pallas_packed: "msda_pallas",
+    ms_deform_attn_pallas_packed_bwd: "msda_pallas_bwd",
+    ms_deform_attn_sepwin: "msda_sepwin", ms_deform_attn_sepwin_bwd: "msda_sepwin_bwd",
+    ms_deform_attn_dense_fused: "msda_dense_fused",
+    ms_deform_attn_dense_fused_bwd: "msda_dense_fused_bwd",
+}
+
+
+def launches(fn):
+    """The launches so far of the kernel behind the wrapper `fn`."""
+    return trace.counts().get(COUNTER[fn], 0)
 
 
 @pytest.fixture
@@ -149,12 +166,12 @@ def test_model_forward_through_kernels(cuda):
                           device=cuda).expand(2, 3, 4)
     sizes = torch.tensor([[1242.0, 375.0]], device=cuda).expand(2, 2)
     counters = (ms_deform_attn_enc_fused, ms_deform_attn_sep, fused_attention)
-    before = [f.launches for f in counters]
+    before = [launches(f) for f in counters]
     with torch.no_grad():
         got = model(images, calibs, sizes)
-        assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1]
+        assert [launches(f) - b for f, b in zip(counters, before)] == [2, 2, 1]
         want = model.use_plain_ops(True)(images, calibs, sizes)
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1]
+    assert [launches(f) - b for f, b in zip(counters, before)] == [2, 2, 1]
     for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
 
@@ -173,11 +190,11 @@ def test_model_forward_through_optin_kernels(cuda, enc, dec):
     counters = ({"pallas": ms_deform_attn_pallas_packed, "sepwin": ms_deform_attn_sepwin}[enc],
                 {"dense_fused": ms_deform_attn_dense_fused, "sep": ms_deform_attn_sep}[dec],
                 fused_attention)
-    before = [f.launches for f in counters]
+    before = [launches(f) for f in counters]
     with torch.no_grad():
         got = model(images, calibs, sizes)
         want = model.use_plain_ops(True)(images, calibs, sizes)
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1]
+    assert [launches(f) - b for f, b in zip(counters, before)] == [2, 2, 1]
     for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
 
@@ -197,11 +214,11 @@ def test_query_variant_forward_through_kernels(cuda, variant):
                           device=cuda).expand(2, 3, 4)
     sizes = torch.tensor([[1242.0, 375.0]], device=cuda).expand(2, 2)
     counters = (ms_deform_attn_enc_fused, ms_deform_attn_sep)
-    before = [f.launches for f in counters]
+    before = [launches(f) for f in counters]
     with torch.no_grad():
         got = model(images, calibs, sizes)
         want = model.use_plain_ops(True)(images, calibs, sizes)
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2]
+    assert [launches(f) - b for f, b in zip(counters, before)] == [2, 2]
     assert got["pred_logits"].shape == (2, 50, 3)
     for k in ("pred_boxes", "pred_depth", "pred_logits", "weighted_depth"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-3)
@@ -298,12 +315,12 @@ def test_windowed_kernels(cuda, dtype, tol, shapes):
     versions."""
     (value, loc, att), _ = window_case(shapes, 2, dtype, 4)
     fx, fy, lanes = pack(shapes, loc, att, 6)
-    before = [ms_deform_attn_pallas_packed.launches, ms_deform_attn_sepwin.launches]
+    before = [launches(ms_deform_attn_pallas_packed), launches(ms_deform_attn_sepwin)]
     got = ms_deform_attn_pallas_packed(value, shapes, fx, fy, lanes, 6)
     assert max_err(got, ms_deform_attn_pallas_packed_plain(value, shapes, fx, fy, lanes)) <= tol
     got = ms_deform_attn_sepwin(value, shapes, loc, att, 6)
     assert max_err(got, ms_deform_attn_windowed(value, shapes, loc, att, 6)) <= tol
-    assert [ms_deform_attn_pallas_packed.launches, ms_deform_attn_sepwin.launches] == [
+    assert [launches(ms_deform_attn_pallas_packed), launches(ms_deform_attn_sepwin)] == [
         b + 1 for b in before]
 
 
@@ -312,18 +329,18 @@ def test_windowed_kernels(cuda, dtype, tol, shapes):
 def test_windowed_backward_kernels(cuda, dtype, shapes):
     (value, loc, att), g = window_case(shapes, 2, dtype, 5)
     lanes = pack(shapes, loc, att, 6)
-    before = ms_deform_attn_pallas_packed_bwd.launches
+    before = launches(ms_deform_attn_pallas_packed_bwd)
     got = grads_of(lambda *x: ms_deform_attn_pallas_packed(x[0], shapes, *x[1:], 6),
                    (value, *lanes), g)
-    assert ms_deform_attn_pallas_packed_bwd.launches == before + 1
+    assert launches(ms_deform_attn_pallas_packed_bwd) == before + 1
     want = grads_of(lambda *x: ms_deform_attn_pallas_packed_plain(x[0], shapes, *x[1:]),
                     (value, *lanes), g)
     for a, b in zip(got, want):
         assert rel_err(a, b) <= GRAD_TOL[dtype]
-    before = ms_deform_attn_sepwin_bwd.launches
+    before = launches(ms_deform_attn_sepwin_bwd)
     got = grads_of(lambda *x: ms_deform_attn_sepwin(x[0], shapes, x[1], x[2], 6),
                    (value, loc, att), g)
-    assert ms_deform_attn_sepwin_bwd.launches == before + 1
+    assert launches(ms_deform_attn_sepwin_bwd) == before + 1
     want = grads_of(lambda *x: ms_deform_attn_windowed(x[0], shapes, x[1], x[2], 6),
                     (value, loc, att), g)
     for a, b in zip(got, want):
@@ -357,10 +374,10 @@ def test_dense_fused_backward_kernel(cuda, dtype, q):
     att = torch.softmax(torch.randn(2, q, H, L * P, generator=gen, device="cuda"), -1)
     att = att.view(2, q, H, L, P)
     g = torch.randn(2, q, H * D, generator=gen, device="cuda")
-    before = ms_deform_attn_dense_fused_bwd.launches
+    before = launches(ms_deform_attn_dense_fused_bwd)
     got = grads_of(lambda *x: ms_deform_attn_dense_fused(x[0], FULL_SHAPES, x[1], x[2]),
                    (value, loc, att), g)
-    assert ms_deform_attn_dense_fused_bwd.launches == before + 1
+    assert launches(ms_deform_attn_dense_fused_bwd) == before + 1
     want = grads_of(lambda *x: ms_deform_attn_dense(x[0], FULL_SHAPES, x[1], x[2]),
                     (value, loc, att), g)
     for a, b in zip(got, want):
@@ -426,10 +443,10 @@ def enc_inputs(shapes, B, dtype, seed, window=6):
                                     ODD_SHAPES])
 def test_enc_fused_backward_kernel(cuda, dtype, shapes):
     (value, off, logits), g = enc_inputs(shapes, 2, dtype, 3)
-    before = ms_deform_attn_enc_fused_bwd.launches
+    before = launches(ms_deform_attn_enc_fused_bwd)
     got = grads_of(lambda *x: ms_deform_attn_enc_fused(x[0], shapes, x[1], x[2], 6),
                    (value, off, logits), g)
-    assert ms_deform_attn_enc_fused_bwd.launches == before + 1
+    assert launches(ms_deform_attn_enc_fused_bwd) == before + 1
     want = grads_of(lambda *x: ms_deform_attn_enc_fused_plain(x[0], shapes, x[1], x[2], 6),
                     (value, off, logits), g)
     for a, b in zip(got, want):
@@ -476,7 +493,7 @@ def test_enc_fused_refuses_what_the_backward_cannot_tile(cuda):
     """Kernel 1 refuses at forward time, with or without a gradient, a head
     count, a pyramid or a window that its backward's tiling cannot take;
     nothing is launched in its place."""
-    before = (ms_deform_attn_enc_fused.launches, ms_deform_attn_enc_fused_bwd.launches)
+    before = (launches(ms_deform_attn_enc_fused), launches(ms_deform_attn_enc_fused_bwd))
     S = sum(h * w for h, w in FULL_SHAPES)
     for heads in (4, 16):  # 8 heads of 32 channels a token row
         value = torch.zeros(1, S, heads, D, device=cuda)
@@ -494,7 +511,7 @@ def test_enc_fused_refuses_what_the_backward_cannot_tile(cuda):
     with torch.no_grad(), pytest.raises(ValueError, match="shared memory"):
         ms_deform_attn_enc_fused(value, FULL_SHAPES, torch.zeros(1, S, 2 * H * L * P, device=cuda),
                                  torch.zeros(1, S, H * L * P, device=cuda), 64)
-    assert before == (ms_deform_attn_enc_fused.launches, ms_deform_attn_enc_fused_bwd.launches)
+    assert before == (launches(ms_deform_attn_enc_fused), launches(ms_deform_attn_enc_fused_bwd))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -524,10 +541,10 @@ def test_sep_backward_kernel(cuda, dtype, q):
     att = torch.softmax(torch.randn(2, q, H, L * P, generator=gen, device="cuda"), -1)
     att = att.view(2, q, H, L, P)
     g = torch.randn(2, q, H * D, generator=gen, device="cuda")
-    before = ms_deform_attn_sep_bwd.launches
+    before = launches(ms_deform_attn_sep_bwd)
     got = grads_of(lambda *x: ms_deform_attn_sep(x[0], FULL_SHAPES, x[1], x[2]),
                    (value, loc, att), g)
-    assert ms_deform_attn_sep_bwd.launches == before + 1
+    assert launches(ms_deform_attn_sep_bwd) == before + 1
     want = grads_of(lambda *x: ms_deform_attn(x[0], FULL_SHAPES, x[1], x[2]),
                     (value, loc, att), g)
     for a, b in zip(got, want):
@@ -547,9 +564,9 @@ def test_attention_forward_and_backward_with_the_kernels_mask(cuda, dtype, tq, t
     keep = attention_keep_mask((2, H, tq, tk), 11, p, cuda) if p > 0 else None
     assert max_err(fused_attention(q, k, v, 11, D ** -0.5, p),
                    attention_plain(q, k, v, D ** -0.5, keep, p)) <= 3 * TOL_OF[dtype]
-    before = fused_attention_bwd.launches
+    before = launches(fused_attention_bwd)
     got = grads_of(lambda *x: fused_attention(*x, 11, D ** -0.5, p), (q, k, v), g)
-    assert fused_attention_bwd.launches == before + 1
+    assert launches(fused_attention_bwd) == before + 1
     want = grads_of(lambda *x: attention_plain(*x, D ** -0.5, keep, p), (q, k, v), g)
     for a, b in zip(got, want):
         assert rel_err(a, b) <= GRAD_TOL[dtype]
@@ -635,9 +652,9 @@ def test_lap_kernel_is_bit_identical(cuda, case):
     else:
         N = int(case[2:])
         cost, valid = lap_problems(528, N, N, cuda)
-    before = lap_solve.launches
+    before = launches(lap_solve)
     got = lap_solve(cost, valid)
-    assert lap_solve.launches == before + 1
+    assert launches(lap_solve) == before + 1
     want = lap_solve_plain(cost.cpu(), valid.cpu())
     assert torch.equal(got.cpu(), want)
 
@@ -882,7 +899,7 @@ def test_windowed_wrappers_refuse_a_window_that_does_not_fit(cuda):
     the wrapper, forward and backward; nothing else is run in its place."""
     (value, loc, att), g = window_case(FULL_SHAPES, 1, torch.float32, 3)
     lanes = pack(FULL_SHAPES, loc, att, 6)
-    before = [f.launches for f in (ms_deform_attn_sepwin, ms_deform_attn_pallas_packed,
+    before = [launches(f) for f in (ms_deform_attn_sepwin, ms_deform_attn_pallas_packed,
                                    ms_deform_attn_sepwin_bwd, ms_deform_attn_pallas_packed_bwd)]
     with pytest.raises(ValueError, match="shared memory"):
         ms_deform_attn_sepwin(value, FULL_SHAPES, loc, att, 64)
@@ -892,7 +909,7 @@ def test_windowed_wrappers_refuse_a_window_that_does_not_fit(cuda):
         ms_deform_attn_sepwin_bwd(value, FULL_SHAPES, loc, att, g, 64)
     with pytest.raises(ValueError, match="shared memory"):
         ms_deform_attn_pallas_packed_bwd(value, FULL_SHAPES, *lanes, g, 64)
-    assert before == [f.launches for f in (
+    assert before == [launches(f) for f in (
         ms_deform_attn_sepwin, ms_deform_attn_pallas_packed, ms_deform_attn_sepwin_bwd,
         ms_deform_attn_pallas_packed_bwd)]
 
@@ -1024,12 +1041,12 @@ def test_loc_wrappers_refuse_tokens_past_32_bit_offsets(cuda, kernel):
     value = torch.empty(1, S, H, D, device=cuda, dtype=torch.bfloat16)
     loc = torch.rand(1, 4, H, 1, P, 2, device=cuda)
     att = torch.full((1, 4, H, 1, P), 1 / P, device=cuda)
-    before = (fwd.launches, bwd.launches)
+    before = (launches(fwd), launches(bwd))
     with pytest.raises(ValueError, match="32-bit offsets"):
         fwd(value, shapes, loc, att)
     with pytest.raises(ValueError, match="32-bit offsets"):
         bwd(value, shapes, loc, att, torch.zeros(1, 4, H * D, device=cuda, dtype=torch.bfloat16))
-    assert before == (fwd.launches, bwd.launches)
+    assert before == (launches(fwd), launches(bwd))
 
 
 def test_loc_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -1037,7 +1054,7 @@ def test_loc_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     value = torch.zeros(1, S, H, D, device=cuda)
     loc = torch.rand(1, 5, H, L, 9, 2, device=cuda)  # 36 samples per head
     att = torch.full((1, 5, H, L, 9), 1 / 36, device=cuda)
-    before = [f.launches for pair in LOC_KERNELS.values() for f in pair]
+    before = [launches(f) for pair in LOC_KERNELS.values() for f in pair]
     for fwd, bwd in LOC_KERNELS.values():
         with pytest.raises(ValueError, match="samples per head"):
             fwd(value, SHAPES, loc, att)
@@ -1046,7 +1063,7 @@ def test_loc_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         with pytest.raises(ValueError, match="32 channels"):
             fwd(torch.zeros(1, S, H, 16, device=cuda), SHAPES, loc[..., :4, :].contiguous(),
                 att[..., :4].contiguous())
-    assert before == [f.launches for pair in LOC_KERNELS.values() for f in pair]
+    assert before == [launches(f) for pair in LOC_KERNELS.values() for f in pair]
 
 
 def test_remat_step_on_the_card_equals_the_step_without(cuda):

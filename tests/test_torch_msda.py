@@ -29,14 +29,12 @@ from monodetr_tpu.ops.msda_pallas import _center_positions
 from monodetr_tpu.ops.msda_sep_pallas import ms_deform_attn_sep as jax_msda_sep
 from monodetr_tpu.ops.msda_windowed import ms_deform_attn_windowed
 from monodetr_torch.models.transformer import encoder_reference_points
-from monodetr_torch.ops.msda_dense import (ms_deform_attn_dense_fused,
-                                           ms_deform_attn_dense_fused_bwd)
-from monodetr_torch.ops.msda_enc import (ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd,
-                                         window_limit)
-from monodetr_torch.ops.msda_pallas import (ms_deform_attn_pallas, ms_deform_attn_pallas_packed,
-                                            ms_deform_attn_pallas_packed_bwd)
-from monodetr_torch.ops.msda_sep import ms_deform_attn_sep, ms_deform_attn_sep_bwd
-from monodetr_torch.ops.msda_sepwin import ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd
+from monodetr_torch.ops.msda_dense import ms_deform_attn_dense_fused
+from monodetr_torch.ops.msda_enc import ms_deform_attn_enc_fused, window_limit
+from monodetr_torch.ops.msda_pallas import ms_deform_attn_pallas, ms_deform_attn_pallas_packed
+from monodetr_torch.ops.msda_sep import ms_deform_attn_sep
+from monodetr_torch.ops.msda_sepwin import ms_deform_attn_sepwin
+from monodetr_torch.utils import trace
 
 torch.set_num_threads(2)
 RTOL, ATOL = 1e-4, 1e-5
@@ -148,11 +146,10 @@ def test_wrappers_count_only_kernel_launches():
     """On the CPU the wrappers, forward and backward, run the plain
     versions and count nothing."""
     rng = np.random.RandomState(30)
-    counters = (ms_deform_attn_enc_fused, ms_deform_attn_enc_fused_bwd, ms_deform_attn_sep,
-                ms_deform_attn_sep_bwd, ms_deform_attn_dense_fused, ms_deform_attn_dense_fused_bwd,
-                ms_deform_attn_pallas_packed, ms_deform_attn_pallas_packed_bwd,
-                ms_deform_attn_sepwin, ms_deform_attn_sepwin_bwd)
-    before = [f.launches for f in counters]
+    counters = ("msda_enc_fused", "msda_enc_fused_bwd", "msda_sep", "msda_sep_bwd",
+                "msda_dense_fused", "msda_dense_fused_bwd", "msda_pallas", "msda_pallas_bwd",
+                "msda_sepwin", "msda_sepwin_bwd")
+    before = [trace.counts().get(name, 0) for name in counters]
     value, loc, att = (torch.from_numpy(x).requires_grad_(True) for x in sep_inputs(rng))
     for op in (ms_deform_attn_sep, ms_deform_attn_dense_fused):
         op(value, SEP_SHAPES, loc, att).sum().backward()
@@ -165,7 +162,7 @@ def test_wrappers_count_only_kernel_launches():
     att = torch.full((2, S, H, L, P), 1.0 / (L * P), requires_grad=True)
     ms_deform_attn_sepwin(value, ENC_SHAPES, loc, att, 6).sum().backward()
     ms_deform_attn_pallas(value, ENC_SHAPES, loc, att, 6).sum().backward()
-    assert [f.launches for f in counters] == before
+    assert [trace.counts().get(name, 0) for name in counters] == before
 
 
 @pytest.mark.parametrize("which", ["enc", "sep", "pallas", "sepwin", "dense_fused"])

@@ -13,7 +13,7 @@ profile_train's split by component, on the CPU.
 - bench_loader_torch prints its loader lines without a card, and says
   the prefetched line is not measured.
 - profile_train.event_components puts every operator of a CPU training
-  step, forward and backward, in the component range around it or around
+  step, forward and backward, in the span's range around it or around
   the forward operator whose autograd node it runs.
 """
 
@@ -169,7 +169,9 @@ def test_event_components_cover_the_step_forward_and_backward():
     by = collections.defaultdict(set)
     for comp, e in event_components(prof.events()):
         by[comp].add(e.name)
-    assert set(by) == set(COMPONENTS) | {"other"}
+    assert set(by) == set(COMPONENTS)  # every operator of a CPU step in a span
+    assert "aten::stack" in by["train step"]  # the loss vector
+    assert "torch::autograd::AccumulateGrad" in by["backward"]
     # the backward's operators go to the forward's components
     assert "ConvolutionBackward0" in by["backbone"]
     assert "GridSampler2DBackward0" in by["encoder MSDA"]
