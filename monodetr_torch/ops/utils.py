@@ -5,8 +5,10 @@ helpers (gaussian radius, gaussian patches, a projected 3-D box).
 Counterpart of monodetr_tpu/ops/utils.py (same math, torch tensors; the
 numpy helpers are copied so that nothing here imports jax)."""
 
+import contextlib
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -14,13 +16,50 @@ import torch
 NUM_HEADING_BIN = 12  # lib/datasets/utils.py:6
 
 
+# .held: the dicts of the thread's open held_constants blocks, innermost last
+_local = threading.local()
+
+
 @functools.lru_cache(maxsize=64)
+def _device_constant(fn, args, device):
+    return torch.from_numpy(np.asarray(fn(*args))).to(device)
+
+
 def device_constant(fn, args, device):
     """The numpy array fn(*args) as a tensor on `device`, made once per
-    (fn, args, device).  A copy from pageable host memory waits for the
-    device's stream, so the forward must not make its constant tables
-    anew; callers never write to the shared tensor."""
-    return torch.from_numpy(np.asarray(fn(*args))).to(device)
+    (fn, args, device) (the last 64 kept).  A copy from pageable host
+    memory waits for the device's stream, so the forward must not make its
+    constant tables anew; callers never write to the shared tensor.
+    Inside `held_constants(tables)` the table comes from `tables` first,
+    and is kept there."""
+    held = getattr(_local, "held", None)
+    if not held:
+        return _device_constant(fn, args, device)
+    tables = held[-1]
+    key = (fn, args, device)
+    t = tables.get(key)
+    if t is None:
+        t = tables[key] = _device_constant(fn, args, device)
+    return t
+
+
+device_constant.cache_clear = _device_constant.cache_clear
+
+
+@contextlib.contextmanager
+def held_constants(tables):
+    """While open, device_constant on this thread takes its tables from the
+    dict `tables` first and keeps in it every table it hands out.  A CUDA
+    graph reads the tables of its capture by address: keeping `tables`
+    with the graph keeps them alive whatever the cache evicts, and a
+    capture inside a block whose eager run filled `tables` copies no table
+    to the card."""
+    held = _local.__dict__.setdefault("held", [])  # this thread's
+    held.append(tables)
+    try:
+        yield tables
+    finally:
+        held.pop()
 
 
 def inverse_sigmoid(x, eps=1e-5):

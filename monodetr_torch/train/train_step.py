@@ -21,12 +21,18 @@ returns once the card has the backward's launches queued) and `optimizer`;
 zero_grad, data parallel's gradient sum and the loss stacking are the
 root's own time.  `batch_to_device` and the eval step (`eval step`: the
 eval forward and the top-k) are roots of their own.
+
+On a CUDA card the eval step replays a CUDA graph of its body
+(make_eval_step); the training step runs eagerly.
 """
+
+import contextlib
 
 import numpy as np
 import torch
 
-from ..utils.trace import span
+from ..ops.utils import held_constants
+from ..utils.trace import count, span
 
 TARGET_KEYS = ("labels", "boxes", "boxes_3d", "depth", "size_3d", "heading_bin",
                "heading_res", "mask")
@@ -95,16 +101,122 @@ def make_eval_step(model, topk=50, threshold=0.2):
     """Returns eval_step(images, calibs, img_sizes) -> detections [B, topk,
     37] (eval/decode.py:extract_dets_from_outputs), the eval forward and
     the top-k under no_grad (monodetr_tpu/train/train_step.py:85-97; as
-    there, `threshold` is the decode's, applied on the host)."""
+    there, `threshold` is the decode's, applied on the host).
+
+    On a CUDA card the body (model.eval(), the forward, the top-k) becomes
+    a CUDA graph, one for each key: the inputs' shapes and dtypes, their
+    device, autocast's state and dtype on CUDA, and the TF32 switches of
+    matmul and cuDNN (`topk` is the step's own).  A key's first call runs
+    eagerly: it fills the constant tables and picks the cuDNN and cuBLAS
+    algorithms.  Its second call captures the body and replays it, and
+    later calls replay.  A one-off caller therefore never captures, and a
+    capture records only work already run once.  A replay copies the
+    inputs into the graph's own buffers and returns a clone of the graph's
+    output, never the buffer itself, so an output held from one call is
+    not overwritten by the next.  The capture runs under a nested
+    torch.autocast with its weight cache off: the casts of the f32
+    parameters are nodes of the graph, read from the parameters at every
+    replay, so weights loaded in place and a caller's autocast left and
+    entered again are both seen.  A parameter or buffer moved or replaced
+    (its address changed) makes the next call of every key eager again,
+    and the one after it re-capture; the model's parameters and buffers
+    are those it had at the step's first call on the card.  All the step's graphs share
+    one memory pool, and each keeps the constant tables of its capture
+    (ops/utils.py:held_constants).  On the CPU every call runs eagerly.
+
+    Each call is the root span `eval step`; a capture counts
+    `eval_graph_capture` in it, a replay `eval_graph_replay`
+    (utils/trace.py).  A replay runs no Python of the model, so its root
+    holds no inner span (`backbone`, `decoder`, ...) and no kernel launch
+    counts: those appear on the eager and capture calls only."""
     from ..eval.decode import extract_dets_from_outputs
+
+    def body(images, calibs, img_sizes):
+        model.eval()
+        return extract_dets_from_outputs(model(images, calibs, img_sizes), topk=topk)
+
+    graphs = EvalGraphs(model, body)
 
     @torch.no_grad()
     def eval_step(images, calibs, img_sizes):
         with span("eval step"):
-            model.eval()
-            return extract_dets_from_outputs(model(images, calibs, img_sizes), topk=topk)
+            if images.device.type != "cuda":
+                return body(images, calibs, img_sizes)
+            return graphs(images, calibs, img_sizes)
 
     return eval_step
+
+
+class _Entry:
+    """One key's state: the model's tensor addresses at its last eager
+    call, the constant tables that call used, and, once captured, the
+    graph, its input buffers and its output."""
+
+    __slots__ = ("state", "tables", "graph", "inputs", "out")
+
+    def __init__(self, state):
+        self.state, self.tables, self.graph = state, {}, None
+
+
+class EvalGraphs:
+    """The eval step's CUDA graphs by key (make_eval_step's policy).
+    `body(images, calibs, img_sizes)` is the step's work, run eagerly or
+    captured."""
+
+    def __init__(self, model, body):
+        self.model, self.body = model, body
+        self.slots = None  # (the modules' tensor dicts, the names in them)
+        self.entries = {}
+        self.pool = None
+
+    def state(self):
+        """The addresses of the model's parameters and buffers, read
+        through their modules, so that a moved or a replaced tensor
+        changes them."""
+        if self.slots is None:
+            slots = [(d, k) for m in self.model.modules() for d in (m._parameters, m._buffers)
+                     for k, v in d.items() if v is not None]
+            self.slots = tuple(zip(*slots)) or ((), ())
+        return tuple(map(torch.Tensor.data_ptr, map(dict.__getitem__, *self.slots)))
+
+    def __call__(self, images, calibs, img_sizes):
+        inputs = (images, calibs, img_sizes)
+        amp = torch.get_autocast_dtype("cuda") if torch.is_autocast_enabled("cuda") else None
+        key = (images.shape, images.dtype, calibs.shape, calibs.dtype, img_sizes.shape,
+               img_sizes.dtype, images.device, amp, torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32)
+        state = self.state()
+        entry = self.entries.get(key)
+        if entry is None or entry.state != state:
+            if entry is not None:  # a tensor moved: every graph reads stale addresses
+                self.entries.clear()
+            entry = self.entries[key] = _Entry(state)
+            with held_constants(entry.tables):
+                return self.body(*inputs)
+        if entry.graph is None:
+            self.capture(entry, inputs, amp)
+            count("eval_graph_capture")
+        else:
+            for buf, x in zip(entry.inputs, inputs):
+                buf.copy_(x)
+            if self.model.training:  # left in eval mode, as an eager call leaves it
+                self.model.eval()
+            count("eval_graph_replay")
+        entry.graph.replay()
+        return entry.out.clone()
+
+    def capture(self, entry, inputs, amp):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        entry.inputs = tuple(x.clone(memory_format=torch.contiguous_format) for x in inputs)
+        graph = torch.cuda.CUDAGraph()
+        cast = (torch.autocast("cuda", dtype=amp, cache_enabled=False) if amp is not None
+                else contextlib.nullcontext())
+        # thread_local: the prefetcher's thread may copy to the card meanwhile
+        with held_constants(entry.tables), torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode="thread_local"), cast:
+            entry.out = self.body(*entry.inputs)
+        entry.graph = graph
 
 
 class LossVector:

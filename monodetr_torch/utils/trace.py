@@ -3,7 +3,8 @@ of its kernels it launched.
 
     with span("forward"):       # a named stretch of host work
         ...
-    count("lap")                # one launch of a port kernel
+    count("lap")                # one launch of a port kernel (or one event
+                                # of the eval step's CUDA graph)
 
 A span is always on.  It takes the host clock (`time.perf_counter_ns`) at
 entry and at exit and keeps a stack per thread, so each span knows its
@@ -18,7 +19,9 @@ roots of the process (more than 51 s of roots at one a millisecond): its
 name, start and end, its self time, the inclusive time of each named
 descendant (summed over the spans of that name), and the port kernels
 counted while it was open, on any thread (the backward's kernels launch
-on the autograd engine's thread).
+on the autograd engine's thread).  A replay of the eval step's CUDA graph
+runs none of the model's Python: its `eval step` root holds no inner span
+and no kernel counts, only `eval_graph_replay` (train_step.py).
 `roots()` reads the ring; `counts()` reads the process's totals.
 
 While a torch.profiler records, a span also opens a profiler range named
@@ -104,8 +107,11 @@ class span:
 
 
 def count(name, n=1):
-    """Adds n to the counter `name` (a port kernel's launches: the name
-    is the kernel's, as chip_smoke.py:KERNELS has it)."""
+    """Adds n to the counter `name`: a port kernel's launches (the name is
+    the kernel's, as chip_smoke.py:KERNELS has it), and the eval step's
+    CUDA graph captures and replays (`eval_graph_capture`,
+    `eval_graph_replay`, train/train_step.py:make_eval_step).  A kernel
+    launched by a graph's replay is not counted: only its capture is."""
     with _totals_lock:
         _totals[name] = _totals.get(name, 0) + n
 

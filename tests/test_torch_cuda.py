@@ -24,8 +24,12 @@ tokens pass 32-bit offsets is refused.  The query variants' forwards run
 the kernels as the standard model's does, and a data-parallel step of two
 gloo ranks sharing the card equals one process's step on their images.
 Under CUDA's bf16 autocast every norm and layer output of each path is
-bf16, as the JAX model's.
+bf16, as the JAX model's.  The eval step's CUDA graph replays the eager
+step's detections bit for bit, in f32 and under bf16 autocast, and sees
+weights loaded in place, a cleared table cache and moved parameters.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -1164,3 +1168,162 @@ def test_pinned_copies_are_bit_equal_to_the_blocking_copy(cuda):
             assert on_card[k].device.type == "cuda" and on_card[k].dtype == want[k].dtype, k
             assert torch.equal(on_card[k], want[k]), k
             assert torch.equal(copied[k], blocking(batch2)[k]), k
+
+
+def _graph_call(step, inputs):
+    """step(*inputs), and what its `eval step` root says the call did."""
+    out = step(*inputs)
+    counts = trace.last("eval step", 1)[0].counts
+    kind = ("replay" if counts.get("eval_graph_replay") else
+            "capture" if counts.get("eval_graph_capture") else "eager")
+    return out, kind
+
+
+def _frames(cuda, batch, n, seed=3):
+    from monodetr_torch.train.synthetic import SyntheticLoader
+
+    keys = ("images", "calibs", "img_sizes")
+    return [tuple(torch.from_numpy(b[k]).to(cuda) for k in keys)
+            for b, _ in SyntheticLoader(n, batch, seed, 128, 256)]
+
+
+def _small_model(cuda, seed=0):
+    from monodetr_torch.config import MONODETR_MODEL
+
+    cfg = dict(MONODETR_MODEL, enc_layers=1, dec_layers=1)
+    return cfg, build_monodetr(cfg, seed=seed).to(cuda)
+
+
+def _eager(model, inputs, autocast):
+    """The eval step's answer without a graph: a fresh step's first call."""
+    from monodetr_torch.train.train_step import make_eval_step
+
+    with autocast():
+        out, kind = _graph_call(make_eval_step(model), inputs)
+    assert kind == "eager"
+    return out
+
+
+@pytest.mark.parametrize("amp", [None, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_eval_step_replays_its_cuda_graph(cuda, amp, batch):
+    """make_eval_step on the card, 1+1 layers at 128x256: calls 1, 2 and 3
+    of a key run eagerly, capture and replay (the counters of their `eval
+    step` roots); the replayed detections equal the eager step's bit for
+    bit, in f32 and under bf16 autocast (the same kernels on the same
+    inputs; the bf16 casts of the weights are the graph's nodes instead of
+    autocast's cache, the same casts); an output held from one call is
+    unchanged by the next; weights loaded in place, the caller's autocast
+    left and entered again, and the constant tables' cache cleared (and
+    its freed memory overwritten) between replays all give the eager
+    answer."""
+    from monodetr_torch.ops.utils import device_constant
+    from monodetr_torch.train.train_step import make_eval_step
+
+    cfg, model = _small_model(cuda)
+    frames = _frames(cuda, batch, 4)
+
+    def autocast():
+        return torch.autocast("cuda", dtype=torch.bfloat16, enabled=amp is not None)
+
+    step = make_eval_step(model)
+    with autocast():
+        calls = [_graph_call(step, f) for f in frames]
+        assert [k for _, k in calls] == ["eager", "capture", "replay", "replay"]
+        held = calls[3][0]
+        kept = held.clone()
+        again, kind = _graph_call(step, frames[0])
+        assert kind == "replay" and torch.equal(held, kept) and not torch.equal(again, kept)
+    assert held.shape == (batch, 50, 37) and torch.isfinite(held).all()
+    for f, (out, _) in zip(frames, calls):
+        assert torch.equal(out, _eager(model, f, autocast))
+    assert torch.equal(again, calls[0][0])
+
+    model.load_state_dict(build_monodetr(cfg, seed=1).state_dict())
+    with autocast():  # left after the replays above, entered again
+        got, kind = _graph_call(step, frames[1])
+    assert kind == "replay" and not torch.equal(got, calls[1][0])
+    assert torch.equal(got, _eager(model, frames[1], autocast))
+
+    device_constant.cache_clear()
+    junk = [torch.full((n,), float("nan"), device=cuda) for n in (2 ** k for k in range(6, 21))
+            for _ in range(4)]
+    with autocast():
+        got, kind = _graph_call(step, frames[2])
+    assert kind == "replay" and torch.isfinite(got).all()
+    assert torch.equal(got, _eager(model, frames[2], autocast))
+    del junk
+
+
+def test_eval_step_recaptures_when_a_parameter_moves_or_is_replaced(cuda):
+    """A parameter moved (new storage) or replaced (a new Parameter in its
+    module) is never replayed from the old graph: the next call runs
+    eagerly, the one after captures anew, and each gives the eager
+    answer of the weights as they are."""
+    from monodetr_torch.train.train_step import make_eval_step
+
+    _, model = _small_model(cuda)
+    frames = _frames(cuda, 1, 3)
+    step = make_eval_step(model)
+    assert [_graph_call(step, f)[1] for f in frames] == ["eager", "capture", "replay"]
+    for p in model.parameters():
+        p.data = p.data.clone()
+    kinds = []
+    for f in frames:
+        out, kind = _graph_call(step, f)
+        kinds.append(kind)
+        assert torch.equal(out, _eager(model, f, contextlib.nullcontext))
+    assert kinds == ["eager", "capture", "replay"]
+    head = model.class_embed[0]
+    head.bias = torch.nn.Parameter(head.bias.detach() + 1.0)
+    out, kind = _graph_call(step, frames[0])
+    assert kind == "eager" and torch.equal(out, _eager(model, frames[0], contextlib.nullcontext))
+    assert [_graph_call(step, f)[1] for f in frames[1:]] == ["capture", "replay"]
+
+
+def test_eval_step_captures_beside_the_prefetcher(cuda):
+    """The tester's loop: batches staged by DevicePrefetcher's thread
+    (pinned copies on its own stream) while the eval step captures and
+    replays on the main thread; every batch's detections equal the eager
+    step's, under bf16 autocast."""
+    from monodetr_torch.data.device_prefetch import DevicePrefetcher
+    from monodetr_torch.train.synthetic import SyntheticLoader
+    from monodetr_torch.train.train_step import make_eval_step
+
+    _, model = _small_model(cuda)
+    keys = ("images", "calibs", "img_sizes")
+
+    def autocast():
+        return torch.autocast("cuda", dtype=torch.bfloat16)
+
+    step = make_eval_step(model)
+    got, kinds, inputs = [], [], []
+    with autocast():
+        for on_card, _, _ in DevicePrefetcher(SyntheticLoader(5, 2, 4, 128, 256), cuda, keys):
+            out, kind = _graph_call(step, [on_card[k] for k in keys])
+            got.append(out)
+            kinds.append(kind)
+            inputs.append([on_card[k].clone() for k in keys])
+    assert kinds == ["eager", "capture", "replay", "replay", "replay"]
+    for out, x in zip(got, inputs):
+        assert torch.equal(out, _eager(model, x, autocast))
+
+
+def test_eval_step_graphs_of_two_shapes_share_a_pool(cuda):
+    """Two input shapes in turn (the tester's full batches and its ragged
+    last one): each key runs eagerly, captures and replays on its own,
+    both graphs in one memory pool, and every call equals the eager
+    step."""
+    from monodetr_torch.train.train_step import make_eval_step
+
+    _, model = _small_model(cuda)
+    one, two = _frames(cuda, 1, 4, seed=5), _frames(cuda, 2, 4, seed=6)
+    step = make_eval_step(model)
+    kinds = []
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        for a, b in zip(one, two):
+            for f in (a, b):
+                out, kind = _graph_call(step, f)
+                kinds.append(kind)
+                assert torch.equal(out, _eager(model, f, contextlib.nullcontext))
+    assert kinds == ["eager"] * 2 + ["capture"] * 2 + ["replay"] * 4

@@ -18,6 +18,11 @@ metrics/host_*_ms.*.py), on the CPU.
   optimizer plus the root's self time make the root; the trainer's line
   reads them and the waits for data from the ring.  Its eval step, decode
   and batch_to_device through the stream readers.
+- The eval step's CUDA graph (train/train_step.py:make_eval_step): on the
+  CPU it never captures; `eval_graph_share.stream` reads the window's
+  share of replays, None for a program whose roots count no capture or
+  replay; device_constant inside held_constants takes and keeps its
+  tables (the graph's own behaviour is tests/test_torch_cuda.py's).
 """
 
 import os
@@ -276,3 +281,89 @@ def test_stream_readers_on_the_program_s_own_roots():
             sum(r.end_ns - r.start_ns for r in window) / 2 / 1e6)
     forward, = trace.last("eval step", 1)
     assert {"backbone", "encoder", "decoder"} <= set(forward.spans)
+
+
+def _graph_ring(window_counts):
+    """3 set-up frames (eager, capture, replay), the window's, 2 profiled
+    replays; as the program writes them, with the other two roots."""
+    replay = {"eval_graph_replay": 1, "msda_sep": 0}
+    ring = []
+    for counts in [{"msda_sep": 3}, {"eval_graph_capture": 1}, replay] + window_counts \
+            + [replay] * 2:
+        ring += [_root("batch_to_device", 1), _root("eval step", 3)._replace(counts=counts),
+                 _root("decode", 1)]
+    return ring
+
+
+def test_eval_graph_share_reads_the_window_s_replays():
+    replay, eager = {"eval_graph_replay": 1}, {"msda_enc_fused": 1}
+    record = {"kind": "stream", "window": {"steps": 4}, "trace": {"steps": 2}}
+    ring = _graph_ring([replay, eager, replay, replay])
+    assert read("eval_graph_share.stream", record, ring) == pytest.approx(75.0)
+    assert read("eval_graph_share.stream", record, _graph_ring([replay] * 4)) == 100.0
+    # the set-up's capture is the only root that counts the mechanism
+    assert read("eval_graph_share.stream", record, _graph_ring([eager] * 4)) == 0.0
+    assert read("eval_graph_share.stream", TRAIN_RECORD, ring + _train_ring()) is None
+    assert read("eval_graph_share.stream", record, ring[-9:]) is None  # window out of the ring
+    # a program without the graph: its roots count kernels only
+    parent = [r._replace(counts=eager) if r.name == "eval step" else r for r in ring]
+    assert read("eval_graph_share.stream", record, parent) is None
+    assert read("eval_graph_share.stream", record, _stream_ring()) is None
+
+
+def test_the_eval_step_on_the_cpu_never_captures():
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.monodetr import build_monodetr
+    from monodetr_torch.train.synthetic import SyntheticLoader
+    from monodetr_torch.train.train_step import make_eval_step
+
+    model = build_monodetr(dict(MONODETR_MODEL, enc_layers=1, dec_layers=1, dtype="float32"),
+                           seed=0)
+    eval_step = make_eval_step(model, topk=5)
+    keys = ("images", "calibs", "img_sizes")
+    batch, _ = next(iter(SyntheticLoader(1, 1, 0, 64, 128)))
+    inputs = [torch.from_numpy(batch[k]) for k in keys]
+    before = trace.counts()
+    first = eval_step(*inputs)
+    for _ in range(3):
+        assert torch.equal(eval_step(*inputs), first)
+    roots = trace.last("eval step", 4)
+    assert len(roots) == 4
+    for r in roots:
+        assert not {"eval_graph_capture", "eval_graph_replay"} & set(r.counts)
+        assert {"backbone", "encoder", "decoder"} <= set(r.spans)
+    after = trace.counts()
+    for c in ("eval_graph_capture", "eval_graph_replay"):
+        assert after.get(c, 0) == before.get(c, 0)
+
+
+def test_device_constant_inside_held_constants_takes_and_keeps_its_tables():
+    from monodetr_torch.ops.utils import device_constant, held_constants, lid_bin_values
+
+    cpu = torch.device("cpu")
+    args = (7, 1e-3, 60.0)
+    shared = device_constant(lid_bin_values, args, cpu)
+    assert device_constant(lid_bin_values, args, cpu) is shared  # the cache's
+    tables = {}
+    with held_constants(tables):
+        held = device_constant(lid_bin_values, args, cpu)
+    assert held is shared and tables == {(lid_bin_values, args, cpu): shared}
+    device_constant.cache_clear()
+    fresh = device_constant(lid_bin_values, args, cpu)
+    assert fresh is not shared and torch.equal(fresh, shared)
+    with held_constants(tables):  # the held table first, whatever the cache has
+        assert device_constant(lid_bin_values, args, cpu) is shared
+        inner = {}
+        with held_constants(inner):
+            assert device_constant(lid_bin_values, args, cpu) is fresh
+        assert inner == {(lid_bin_values, args, cpu): fresh}
+        seen = []  # another thread's calls are not held
+
+        def other():
+            seen.append(device_constant(lid_bin_values, args, cpu))
+
+        t = threading.Thread(target=other)
+        t.start()
+        t.join(30)
+        assert not t.is_alive() and seen[0] is fresh
+    assert device_constant(lid_bin_values, args, cpu) is fresh
