@@ -34,10 +34,10 @@ def train_control(config, mix, seed, device):
     r = Run(config, mix, seed, 0, False, device, 0.0)
     r.for_reference()
     batches = r.traffic.batches(device)[:mix["checked_steps"]]
-    args = (config["model"], r.state(), batches, r.seeds[3], mix["lr"],
+    args = (r.arch, config["model"], r.state(), batches, r.seeds[3], mix["lr"],
             config["optimizer"]["weight_decay"], config["reference"]["micro_batch"], device)
     low = steps.train_steps(*args, prec=Fp8())
-    ref = steps.train_steps(*args, given=low["assignment"])
+    ref = steps.train_steps(*args, given=low["assignment"], given_picks=low.get("picks"))
     return check.train_numbers(low, ref)
 
 
@@ -57,8 +57,8 @@ def infer_control(config, mix, seed, device):
     images = np.concatenate([f[0]["images"] for f in frames])[ids]
     calibs = np.concatenate([f[0]["calibs"] for f in frames])[ids]
     sizes = np.concatenate([f[0]["img_sizes"] for f in frames])[ids]
-    args = (config["model"], r.state(), torch.from_numpy(images), torch.from_numpy(calibs),
-            torch.from_numpy(sizes), device)
+    args = (r.arch, config["model"], r.state(), torch.from_numpy(images),
+            torch.from_numpy(calibs), torch.from_numpy(sizes), device)
     low = steps.candidates(*args, prec=Fp8())
     ref = dict(zip(ids, steps.candidates(*args)))
     mean = np.zeros((3, 3))
@@ -82,7 +82,8 @@ def fault_run(config, mix, seed, fault, device):
 
     from bench_h100.core import faults, loops
 
-    planted = contextlib.nullcontext() if fault == "none" else faults.FAULTS[mix["kind"]][fault]()
+    planted = (contextlib.nullcontext() if fault == "none"
+               else faults.planted(mix["kind"], fault)())
     with planted:
         record, _, _ = loops.run(config, mix, {"limits": {}}, seed, 3.0, False, device,
                                  time.perf_counter())

@@ -23,9 +23,21 @@ breaks otherwise swaps targets between queries):
   update_gap_3rd_leaf  the third largest of those changes' gaps: a fault
                      that reaches three leaves or more (one op in each of the
                      three layers) reads about 1 there, whatever the median.
-  Reported beside them and not compared (PERF.md says why): the loss and
-  the assignment over all three steps, and the worst and third-worst
-  leaves' gradients and the worst leaf's change.
+  pick_excess        only where the program picks proposals (whose picks
+                     the reference takes, as it takes the assignment): the
+                     first step's picks: for each image and rank r of the
+                     program's picks, the reference's r-th best proposal
+                     score less its score at the program's r-th pick
+                     (floored at 0); the largest.  Picks that near-tied
+                     scores swap read about the rounding of the scores, a
+                     wrong set or order (the order sets the query groups)
+                     on the scale of the scores; picks that do not cover
+                     every image, or repeat a token, read inf.
+  Reported beside them and not compared (PERF.md says why): the loss, the
+  assignment and the picks over all three steps (after the first step's
+  update Adam moves leaves whose gradient is round-off by a whole step, so
+  the two sides' weights, and with them the scores, part), and the worst
+  and third-worst leaves' gradients and the worst leaf's change.
 Inference (a sample of the frames served in the window, each frame judged
 as a whole; the number is the worst frame's):
   score_gap   the root mean square of the gaps between the frame's sorted
@@ -64,10 +76,24 @@ def _ranked(gaps, k):
     return gaps[leaf], leaf
 
 
+def pick_excess(picks, scores):
+    """picks: the program's proposal picks [B, K] of one step, in its rank
+    order; scores: the reference's score of every token [B, S] at that
+    step -> that step's pick_excess (see above)."""
+    p, s = np.asarray(picks), np.asarray(scores, np.float64)
+    if (p.ndim != 2 or p.shape[0] != s.shape[0] or p.shape[1] > s.shape[1]
+            or p.min() < 0 or p.max() >= s.shape[1]
+            or any(len(np.unique(row)) != len(row) for row in p)):
+        return math.inf
+    best = -np.sort(-s, axis=1)[:, :p.shape[1]]
+    return max(0.0, float(np.max(best - np.take_along_axis(s, p, 1))))
+
+
 def train_numbers(prog, ref):
     """prog / ref: {"losses": [steps], "grad": {leaf: norm}, "change":
-    {leaf: norm}}, ref also "excess" [steps] -> ({name: value}, {name:
-    worst leaf})."""
+    {leaf: norm}}, ref also "excess" [steps]; where the program picked
+    proposals prog "picks" and ref "proposal_scores" [steps] -> ({name:
+    value}, {name: worst leaf})."""
     lp, lr_ = np.asarray(prog["losses"], float), np.asarray(ref["losses"], float)
     loss = np.abs(lp - lr_) / np.abs(lr_)
     loss = np.where(np.isfinite(loss), loss, np.inf)
@@ -77,13 +103,19 @@ def train_numbers(prog, ref):
                         lambda n: n in ref["grad"] and ref["grad"][n] >= 1e-3 * med)
     (g1, g1_leaf), (g3, _) = _ranked(grad, 1), _ranked(grad, 3)
     (u1, u1_leaf), (u3, u3_leaf) = _ranked(update, 1), _ranked(update, 3)
-    return ({"match_excess": float(ref["excess"][0]), "loss_gap": float(loss[0]),
-             "grad_gap_median": float(np.median(list(grad.values()))),
-             "update_gap_median": float(np.median(list(update.values()))),
-             "update_gap_3rd_leaf": u3,
-             "match_excess_any_step": float(max(ref["excess"])),
-             "loss_gap_any_step": float(loss.max()), "grad_gap_worst_leaf": g1,
-             "grad_gap_3rd_leaf": g3, "update_gap_worst_leaf": u1},
+    numbers = {"match_excess": float(ref["excess"][0]), "loss_gap": float(loss[0]),
+               "grad_gap_median": float(np.median(list(grad.values()))),
+               "update_gap_median": float(np.median(list(update.values()))),
+               "update_gap_3rd_leaf": u3,
+               "match_excess_any_step": float(max(ref["excess"])),
+               "loss_gap_any_step": float(loss.max()), "grad_gap_worst_leaf": g1,
+               "grad_gap_3rd_leaf": g3, "update_gap_worst_leaf": u1}
+    if prog.get("picks"):
+        scores = ref.get("proposal_scores", [])
+        picked = ([pick_excess(p, s) for p, s in zip(prog["picks"], scores)]
+                  if len(scores) == len(prog["picks"]) else [math.inf])
+        numbers.update(pick_excess=picked[0], pick_excess_any_step=max(picked))
+    return (numbers,
             {"grad_gap": g1_leaf, "update_gap": u1_leaf, "update_gap_3rd": u3_leaf,
              "top_update_gaps": [[n, update[n]] for n in sorted(update, key=update.get,
                                                                reverse=True)[:6]]})

@@ -18,7 +18,7 @@ from torch.utils.flop_counter import FlopCounterMode
 if __package__ in (None, ""):
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from bench_h100.reference.model import build, trained  # noqa: E402
+from bench_h100.core import spec  # noqa: E402
 
 BF16_TC_FLOPS = 989.4e12
 F32_FLOPS = 67e12
@@ -29,20 +29,18 @@ HBM_BYTES_S = 3.35e12
 SAMPLE_OPS = {"fwd": 8, "bwd": 16}
 
 
-def flops_per_image(model_cfg, height, width, train):
-    """Matrix-product and convolution operations of one image: the
-    training forward (all query groups) and its backward, or the eval
-    forward."""
-    m = dict(model_cfg)
-    m.setdefault("group_num", 11)
-    model = build(m, "meta")
+def flops_per_image(arch, model_cfg, height, width, train):
+    """Matrix-product and convolution operations of one image through the
+    model of the reference module `arch`: the training forward (all query
+    groups) and its backward, or the eval forward."""
+    model = arch.build(model_cfg, "meta")
     for n, p in model.named_parameters():
-        p.requires_grad_(train and trained(n))
+        p.requires_grad_(train and arch.trained(n))
     images = torch.empty(1, height, width, 3, device="meta")
     calibs = torch.empty(1, 3, 4, device="meta")
     sizes = torch.empty(1, 2, device="meta")
     with FlopCounterMode(display=False) as fc:
-        outs, depth_logits = model(images, calibs, sizes, train, None)
+        outs, depth_logits, _ = model(images, calibs, sizes, train, None)
         if train:
             (sum(v.sum() for o in outs for v in o.values()) + depth_logits.sum()).backward()
     return int(fc.get_total_flops())
@@ -92,14 +90,13 @@ def least_ms(work, directions, images, layers):
 def frozen_counts(config):
     """The counts that a configuration file keeps under `counts`."""
     m, (h, w) = config["model"], (config["input"]["height"], config["input"]["width"])
+    arch = spec.reference(config)
     return {
-        "train_flops_per_img": flops_per_image(m, h, w, True),
-        "eval_flops_per_img": flops_per_image(m, h, w, False),
+        "train_flops_per_img": flops_per_image(arch, m, h, w, True),
+        "eval_flops_per_img": flops_per_image(arch, m, h, w, False),
         "enc_msda_per_img_layer": enc_msda_work(m, h, w),
     }
 
 
 if __name__ == "__main__":
-    from bench_h100.core.spec import load_config
-
-    print(json.dumps(frozen_counts(load_config(sys.argv[1])), indent=1))
+    print(json.dumps(frozen_counts(spec.load_config(sys.argv[1])), indent=1))

@@ -13,7 +13,9 @@ half_batch      (train) the losses are taken over the first half of the
                 for the rest (with one image, the previous call's output);
 altered_answer  (stream) one detection's depth is moved by 10 m in the
                 copy that reaches the host, and one KITTI row's score by
-                0.1 where the decode makes it.
+                0.1 where the decode makes it;
+lowest_picks    (train, a program that picks proposals) the proposal
+                top-k takes the lowest-scoring tokens, lowest first.
 """
 
 import contextlib
@@ -128,6 +130,31 @@ def altered_answer():
         yield
 
 
+@contextlib.contextmanager
+def lowest_picks():
+    from monodetr_torch.models import transformer
+
+    forward = transformer.DepthAwareTransformer.forward
+    topk = torch.Tensor.topk
+
+    def lowest(self, k, dim=-1, largest=True, sorted=True):
+        return topk(self, k, dim=dim, largest=not largest, sorted=sorted)
+
+    def broken(self, *args, **kwargs):
+        with _patch(torch.Tensor, "topk", lowest):
+            return forward(self, *args, **kwargs)
+
+    with _patch(transformer.DepthAwareTransformer, "forward", broken):
+        yield
+
+
 FAULTS = {"train": {"frozen_state": frozen_state, "half_batch": half_batch_train,
                     "lost_offsets": lost_offsets},
           "stream": {"half_batch": half_batch_eval, "altered_answer": altered_answer}}
+# faults that only a program that picks proposals can have
+PICK_FAULTS = {"train": {"lowest_picks": lowest_picks}, "stream": {}}
+
+
+def planted(kind, name):
+    """The fault `name` of a cell of `kind`."""
+    return {**FAULTS[kind], **PICK_FAULTS[kind]}[name]

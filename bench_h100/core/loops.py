@@ -22,8 +22,7 @@ import numpy as np
 import torch
 
 from ..reference import steps as ref_steps
-from ..reference.model import build as build_reference
-from . import check, trace as tr
+from . import check, spec, trace as tr
 from .traffic import Traffic, sub_seeds
 from .weights import class_bias, make_state, set_class_bias
 
@@ -34,6 +33,7 @@ class Run:
     def __init__(self, config, mix, seed, seconds, traced, device, t0):
         self.config, self.mix = config, mix
         self.seconds, self.traced, self.device, self.t0 = seconds, traced, device, t0
+        self.arch = spec.reference(config)
         self.seeds = sub_seeds(seed, 5)  # images, host data, weights, dropout, sample
         self.traffic = Traffic(mix, config, *self.seeds[:2])
         self.record = {"kind": mix["kind"], "counts": config["counts"],
@@ -48,11 +48,10 @@ class Run:
         """The weights both sides start from; the first call sets the class
         bias on the reference's forward of a calibration frame and then
         forgets that forward's memory peak."""
-        spec = build_reference(self.config["model"], "meta")
-        state = make_state(spec, self.seeds[2], self.config, self.device)
+        state = make_state(self.arch, self.seeds[2], self.config, self.device)
         if self.bias is None:
             t = time.perf_counter()
-            self.bias = class_bias(self.config, state,
+            self.bias = class_bias(self.arch, self.config, state,
                                    *self.traffic.calibration_frame(self.device), self.device)
             if self.device != "cpu":
                 torch.cuda.empty_cache()
@@ -116,13 +115,16 @@ def run_train(r):
     opt = build_optimizer(r.config["optimizer"], model)
     criterion = SetCriterion(cfg)
     step = make_train_step(model, criterion, opt, compute_dtype(cfg))
-    # the checked steps' assignments, as the program's matcher returns them
-    assigned = []
+    # the checked steps' assignments, as the program's matcher returns them,
+    # and the proposal picks of a program that picks them
+    assigned, picks = [], []
     matcher = criterion.match
 
     def match(outputs, targets, train=True):
         matched = matcher(outputs, targets, train)
         assigned.append(ref_steps.assignment(matched, targets["mask"]))
+        if "proposal_idx" in outputs:
+            picks.append(outputs["proposal_idx"].cpu())
         return matched
 
     criterion.match = match
@@ -132,7 +134,7 @@ def run_train(r):
     checked = r.config["reference"].get("steps", mix["checked_steps"])
     params = dict(model.named_parameters())
     start = {k: v.detach().clone() for k, v in params.items()}
-    prog = {"losses": [], "terms": []}
+    prog = {"losses": [], "terms": [], "picks": picks}
     for i in range(checked):
         terms = {k: float(v) for k, v in step(pool[i % n], lr, gen).as_dict().items()}
         prog["losses"].append(terms["loss_detr"])
@@ -182,8 +184,9 @@ def run_train(r):
     t_ref = time.perf_counter()
     batches = r.traffic.batches(r.device)[:checked]
     ref = ref_steps.train_steps(
-        cfg, r.state(), batches, r.seeds[3], lr, r.config["optimizer"]["weight_decay"],
-        r.config["reference"]["micro_batch"], r.device, given=assigned)
+        r.arch, cfg, r.state(), batches, r.seeds[3], lr, r.config["optimizer"]["weight_decay"],
+        r.config["reference"]["micro_batch"], r.device, given=assigned,
+        given_picks=picks or None)
     numbers, worst = check.train_numbers(prog, ref)
     r.record["worst_leaf"] = worst
     r.record["numbers"] = numbers
@@ -265,7 +268,7 @@ def _infer(r, serve_batches):
     calibs = np.concatenate([f[0]["calibs"] for f in frames])
     sizes = np.concatenate([f[0]["img_sizes"] for f in frames])
     cands = ref_steps.candidates(
-        r.config["model"], r.state(), torch.from_numpy(allimg[ids]),
+        r.arch, r.config["model"], r.state(), torch.from_numpy(allimg[ids]),
         torch.from_numpy(calibs[ids]), torch.from_numpy(sizes[ids]), r.device)
     cands = dict(zip(ids, cands))
     numbers = check.det_numbers(served, cands, mix["topk"])

@@ -1,11 +1,12 @@
 """Weights made from a seed on the card, in the layout of the published
-checkpoint (the reference's state dict), which loads into the reference
-and into the program alike.
+checkpoint (the state dict of the configuration's reference module,
+`arch`), which loads into the reference and into the program alike.
 
 Every drawn leaf is a slice of one normal draw from a card generator,
 scaled per leaf: matrix and convolution kernels by 1 / sqrt(fan in) (the
 in-projections of attention and the level projections by
-sqrt(2 / (fan in + fan out))), embeddings and level embeddings by 1.
+sqrt(2 / (fan in + fan out))), embeddings and level embeddings by 1 (those
+of EMBEDDINGS and of the reference module's own EMBEDDINGS).
 Biases are 0, norms the identity, frozen batch norm the identity.  Three
 leaves follow MonoDETR's own initialisation: the sampling offsets' bias is
 the ring of unit directions scaled by point index (shrunk to 0.75 of the
@@ -23,8 +24,6 @@ import math
 import numpy as np
 import torch
 
-from ..reference.model import build
-
 
 def offset_ring(heads, levels, points, max_radius=None):
     thetas = np.arange(heads, dtype=np.float32) * (2.0 * math.pi / heads)
@@ -41,9 +40,9 @@ EMBEDDINGS = ("query_embed.weight", "depth_predictor.depth_pos_embed.weight",
               "depthaware_transformer.level_embed")
 
 
-def _scale(name, shape):
+def _scale(name, shape, embeddings=EMBEDDINGS):
     """Standard deviation of a drawn leaf, None for a leaf that is set."""
-    if name in EMBEDDINGS:
+    if name in embeddings:
         return 1.0
     leaf = name.rsplit(".", 1)[-1]
     if leaf in ("weight", "in_proj_weight") and len(shape) >= 2:
@@ -54,12 +53,14 @@ def _scale(name, shape):
     return None
 
 
-def make_state(reference_model, seed, config, device):
-    """{name: f32 tensor on `device`} for every entry of the reference's
-    state dict, drawn from `seed`; `config` gives the model's sizes.  The
-    class bias is 0 (see class_bias)."""
-    spec = [(n, tuple(t.shape)) for n, t in reference_model.state_dict().items()]
-    drawn = [(n, s, _scale(n, s)) for n, s in spec]
+def make_state(arch, seed, config, device):
+    """{name: f32 tensor on `device`} for every entry of the state dict of
+    the reference module `arch`'s model, drawn from `seed`; `config` gives
+    the model's sizes.  The class bias is 0 (see class_bias)."""
+    embeddings = EMBEDDINGS + getattr(arch, "EMBEDDINGS", ())
+    spec = [(n, tuple(t.shape))
+            for n, t in arch.build(config["model"], "meta").state_dict().items()]
+    drawn = [(n, s, _scale(n, s, embeddings)) for n, s in spec]
     total = sum(int(np.prod(s)) for _, s, sd in drawn if sd is not None)
     gen = torch.Generator(device).manual_seed(seed)
     flat = torch.randn(total, generator=gen, device=device)
@@ -96,18 +97,18 @@ def set_class_bias(state, bias):
 
 
 @torch.no_grad()
-def class_bias(config, state, images, calibs, img_sizes, device):
+def class_bias(arch, config, state, images, calibs, img_sizes, device):
     """The class bias at which `rows_per_frame` of the last decoder layer's
     (query, class) scores of the eval forward of one frame (the reference,
     float32) reach the `threshold`; the other frames of a mix then
     decode about as many rows."""
     w = config["weights"]
-    model = build(config["model"], device)
+    model = arch.build(config["model"], device)
     model.load_state_dict(set_class_bias(dict(state), 0.0))
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        outs, _ = model(images, calibs, img_sizes)
+        outs = model(images, calibs, img_sizes)[0]
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     top = outs[-1]["pred_logits"][0].flatten().double().sort(descending=True).values

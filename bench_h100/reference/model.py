@@ -395,19 +395,29 @@ class Transformer(nn.Module):
                               for _ in range(m["enc_layers"]))
         self.decoder = Layers(DecoderLayer(d, L, heads, m["dec_n_points"], p, m["group_num"],
                                            m["num_queries"]) for _ in range(m["dec_layers"]))
-        self.reference_points = Linear(d, 2)
 
 
 class MonoDETR(nn.Module):
     """model(images [B, H, W, 3], calibs [B, 3, 4], img_sizes [B, 2],
-    train, drops) -> the outputs of every decoder layer and the depth map."""
+    train, drops) -> (the outputs of every decoder layer, the depth map's
+    logits, None: the proposals of a query path that picks them).
+
+    A reference of another query path subclasses this one: it names the
+    query flags it holds (`QUERIES`), adds its query parameters in
+    `add_queries` and builds its queries in `forward`, around `encode` and
+    `head`."""
+
+    # (two_stage, use_dab, two_stage_dino)
+    QUERIES = (False, False, False)
+    PATH = "the standard MonoDETR path"
 
     def __init__(self, m):
         super().__init__()
-        if (m["backbone"] not in STAGE_BLOCKS or m["dilation"] or m["two_stage"]
-                or m["use_dab"] or m["two_stage_dino"] or m["position_embedding"] != "sine"
+        if (m["backbone"] not in STAGE_BLOCKS or m["dilation"]
+                or (m["two_stage"], m["use_dab"], m["two_stage_dino"]) != self.QUERIES
+                or m["position_embedding"] != "sine"
                 or not m["with_box_refine"] or m["init_box"] or m["num_feature_levels"] != 4):
-            raise ValueError("the reference holds the standard MonoDETR path only")
+            raise ValueError(f"the reference holds {self.PATH} only")
         d = m["hidden_dim"]
         self.m = m
         self.backbone = nn.ModuleList([Backbone(m["backbone"])])
@@ -416,13 +426,20 @@ class MonoDETR(nn.Module):
         self.depth_predictor = DepthPredictor(d, m["num_depth_bins"], float(m["depth_min"]),
                                               float(m["depth_max"]), m["nheads"], m["dropout"])
         self.depthaware_transformer = Transformer(m)
-        self.query_embed = nn.Embedding(m["num_queries"] * m["group_num"], 2 * d)
+        self.add_queries(m)
         n = m["dec_layers"]
         self.class_embed = nn.ModuleList(Linear(d, m["num_classes"]) for _ in range(n))
         self.bbox_embed = nn.ModuleList(MLP(d, 6, 3) for _ in range(n))
         self.dim_embed_3d = nn.ModuleList(MLP(d, 3, 2) for _ in range(n))
         self.angle_embed = nn.ModuleList(MLP(d, 24, 2) for _ in range(n))
         self.depth_embed = nn.ModuleList(MLP(d, 2, 2) for _ in range(n))
+
+    def add_queries(self, m):
+        """The standard path's learned queries and the linear layer that
+        makes their 2-D references."""
+        d = m["hidden_dim"]
+        self.depthaware_transformer.reference_points = Linear(d, 2)
+        self.query_embed = nn.Embedding(m["num_queries"] * m["group_num"], 2 * d)
 
     def set_precision(self, prec):
         """Round with `prec` every product's operands and output and every
@@ -438,9 +455,11 @@ class MonoDETR(nn.Module):
                 mod.register_forward_hook(rounded)
         return self
 
-    def forward(self, images, calibs, img_sizes, train=False, drops=None):
-        m, d = self.m, self.d_model
-        B = images.shape[0]
+    def encode(self, images, drops):
+        """The backbone, the depth predictor and the encoder: (memory
+        [B, S, C], the levels' (h, w), the depth embedding, the weighted
+        depth map, the depth logits)."""
+        d = self.d_model
         f8, f16, f32_ = self.backbone[0].body(images.permute(0, 3, 1, 2))
         srcs = [self.input_proj[i](f) for i, f in enumerate((f8, f16, f32_))]
         srcs.append(self.input_proj[3](f32_))
@@ -453,38 +472,51 @@ class MonoDETR(nn.Module):
         pos_flat = torch.cat([p.reshape(-1, d) + tr.level_embed[l] for l, p in enumerate(pos)])
         for layer in tr.encoder.layers:
             memory = layer(memory, pos_flat[None], shapes, drops)
+        return memory, shapes, depth_embed, weighted, logits_d
+
+    def head(self, lid, tgt, ref, calibs, img_sizes, weighted):
+        """Decoder layer lid's outputs from its queries `tgt` and the
+        reference `ref` it sampled around; its pred_boxes, detached, are
+        the next layer's reference."""
+        fy = calibs[:, 0, 0][:, None]
+        size3d = self.dim_embed_3d[lid](tgt)
+        tmp = self.bbox_embed[lid](tgt)
+        unact = inverse_sigmoid(ref)
+        if ref.shape[-1] == 6:
+            tmp = tmp + unact
+        else:
+            tmp = torch.cat([tmp[..., :2] + unact, tmp[..., 2:]], -1)
+        coord = torch.sigmoid(tmp)
+        height = ((coord[:, :, 4] + coord[:, :, 5]) * img_sizes[:, 1:2]).clamp(min=1.0)
+        depth_geo = size3d[:, :, 0] / height * fy
+        depth_reg = self.depth_embed[lid](tgt)
+        centres = ((coord[..., :2] - 0.5) * 2).detach()
+        depth_map = F.grid_sample(weighted[:, None], centres[:, :, None, :],
+                                  mode="bilinear", padding_mode="zeros",
+                                  align_corners=True)[:, 0, :, 0]
+        depth_ave = (1.0 / (torch.sigmoid(depth_reg[:, :, 0]) + 1e-6) - 1.0
+                     + depth_geo + depth_map) / 3
+        return {"pred_logits": self.class_embed[lid](tgt), "pred_boxes": coord,
+                "pred_3d_dim": size3d,
+                "pred_depth": torch.stack([depth_ave, depth_reg[:, :, 1]], -1),
+                "pred_angle": self.angle_embed[lid](tgt)}
+
+    def forward(self, images, calibs, img_sizes, train=False, drops=None):
+        m, d = self.m, self.d_model
+        B = images.shape[0]
+        memory, shapes, depth_embed, weighted, logits_d = self.encode(images, drops)
+        tr = self.depthaware_transformer
         q = self.query_embed.weight
         if not train:
             q = q[:m["num_queries"]]
         qpos, tgt = q[None].expand(B, -1, -1).split(d, dim=-1)
         ref = torch.sigmoid(tr.reference_points(qpos))
-        fy = calibs[:, 0, 0][:, None]
         outs = []
         for lid, layer in enumerate(tr.decoder.layers):
             tgt = layer(tgt, qpos, ref, memory, shapes, depth_embed, drops)
-            size3d = self.dim_embed_3d[lid](tgt)
-            tmp = self.bbox_embed[lid](tgt)
-            unact = inverse_sigmoid(ref)
-            if ref.shape[-1] == 6:
-                tmp = tmp + unact
-            else:
-                tmp = torch.cat([tmp[..., :2] + unact, tmp[..., 2:]], -1)
-            coord = torch.sigmoid(tmp)
-            height = ((coord[:, :, 4] + coord[:, :, 5]) * img_sizes[:, 1:2]).clamp(min=1.0)
-            depth_geo = size3d[:, :, 0] / height * fy
-            depth_reg = self.depth_embed[lid](tgt)
-            centres = ((coord[..., :2] - 0.5) * 2).detach()
-            depth_map = F.grid_sample(weighted[:, None], centres[:, :, None, :],
-                                      mode="bilinear", padding_mode="zeros",
-                                      align_corners=True)[:, 0, :, 0]
-            depth_ave = (1.0 / (torch.sigmoid(depth_reg[:, :, 0]) + 1e-6) - 1.0
-                         + depth_geo + depth_map) / 3
-            outs.append({"pred_logits": self.class_embed[lid](tgt), "pred_boxes": coord,
-                         "pred_3d_dim": size3d,
-                         "pred_depth": torch.stack([depth_ave, depth_reg[:, :, 1]], -1),
-                         "pred_angle": self.angle_embed[lid](tgt)})
-            ref = coord.detach()
-        return outs, logits_d
+            outs.append(self.head(lid, tgt, ref, calibs, img_sizes, weighted))
+            ref = outs[-1]["pred_boxes"].detach()
+        return outs, logits_d, None
 
     @property
     def d_model(self):
@@ -492,9 +524,13 @@ class MonoDETR(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, d, out, n):
+    """n linear layers of width d with ReLU between; the first takes d_in
+    features (d by default), the last gives out."""
+
+    def __init__(self, d, out, n, d_in=None):
         super().__init__()
-        self.layers = nn.ModuleList(Linear(d, d if i < n - 1 else out) for i in range(n))
+        self.layers = nn.ModuleList(Linear(d_in or d if i == 0 else d, d if i < n - 1 else out)
+                                    for i in range(n))
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -504,13 +540,13 @@ class MLP(nn.Module):
         return x
 
 
-def build(model_cfg, device="cpu"):
-    """The reference model of a configuration's `model` keys, on `device`,
-    its parameters uninitialised (load a state dict into it)."""
+def build(model_cfg, device="cpu", net=MonoDETR):
+    """The reference model (`net`) of a configuration's `model` keys, on
+    `device`, its parameters uninitialised (load a state dict into it)."""
     m = dict(model_cfg)
     m.setdefault("group_num", 11)
     with torch.device(device):
-        return MonoDETR(m)
+        return net(m)
 
 
 def trained(name):

@@ -1,13 +1,20 @@
 """The reference's training steps and its eval forward, on a state dict and
 inputs that the benchmark hands to it.
 
+Both take the configuration's reference module (`arch`: reference/model.py
+or another that the configuration names), whose `build` makes the model
+and `trained` tells the leaves the optimizer updates.
+
 `train_steps` takes AdamW steps on the given batches from the given
 weights, with the dropout masks of a generator seeded as the program's,
 and returns per step the total loss, the first step's gradient norm of
-every trained leaf, and each leaf's change after the last step.  A batch
-too large for the card at float32 is computed in micro-batches: a first
-pass without gradients matches every layer and sums the dimension loss's
-compensation weight over the whole batch, a second takes the gradients.
+every trained leaf, and each leaf's change after the last step.  A model
+that picks proposals (its forward returns them) takes the program's
+picks, where given, and returns every token's proposal score besides.  A
+batch too large for the card at float32 is computed in micro-batches: a
+first pass without gradients matches every layer and sums the dimension
+loss's compensation weight over the whole batch, a second takes the
+gradients.
 
 `candidates` returns, per image, every (query, class) pair of the last
 decoder layer in the 37 columns of a detection, and `decode` turns one
@@ -21,7 +28,7 @@ import torch
 
 from . import loss as L
 from .drops import Drops
-from .model import build, f32, trained
+from .model import f32
 
 TARGET_KEYS = ("labels", "boxes", "boxes_3d", "depth", "size_3d", "heading_bin",
                "heading_res", "mask")
@@ -40,13 +47,19 @@ def _given(given, lid, b0, b1):
     return b[sel] - b0, q[sel], t[sel]
 
 
-def step_grads(model, m, batch, gen, micro, given=None):
-    """(total loss, {name: gradient}, excess, assignment) of one training
-    step.  given: per decoder layer the (b, q, t) assignment to train with
-    (another solver's), whose excess cost over this step's optimum is
-    returned; None to match here.  The assignment trained with is returned
-    in the same form."""
+def step_grads(arch, model, m, batch, gen, micro, given=None, given_picks=None):
+    """(total loss, {name: gradient}, excess, assignment, loss terms,
+    proposals) of one training step.  given: per decoder layer the (b, q,
+    t) assignment to train with (another solver's), whose excess cost over
+    this step's optimum is returned; None to match here.  The assignment
+    trained with is returned in the same form.  given_picks: the proposal
+    picks [B, K] to take (the program's), or None for the model's own; a
+    set that does not cover the batch is not taken.  proposals: None for a
+    model that picks none, else (the picks taken [B, K], every token's
+    score [B, S]), on the host."""
     B = batch["images"].shape[0]
+    if given_picks is not None and given_picks.shape[0] != B:
+        given_picks = None
     drops = Drops(gen, m["dropout"], B, batch["images"].device) if gen is not None else None
     tgt = {k: batch[k] for k in TARGET_KEYS}
     num_boxes = (tgt["mask"].sum().float() * m["group_num"]).clamp(min=1.0)
@@ -54,6 +67,12 @@ def step_grads(model, m, batch, gen, micro, given=None):
     w = {k: float(m[k]) for k in ("set_cost_class", "set_cost_bbox", "set_cost_giou",
                                   "set_cost_3dcenter")}
     matches, comp, excess = {}, None, 0.0
+
+    def forward(mb, b0, b1):
+        picks = {} if given_picks is None else {
+            "proposal_idx": given_picks[b0:b1].to(mb["images"].device)}
+        return model(mb["images"], mb["calibs"], mb["img_sizes"], True,
+                     drops and drops.start(b0, b1), **picks)
 
     def matched(out, t_mb, b0, b1, lid):
         nonlocal excess
@@ -70,8 +89,7 @@ def step_grads(model, m, batch, gen, micro, given=None):
             for b0, b1 in chunks:
                 mb = _cut(batch, b0, b1)
                 t_mb = _cut(tgt, b0, b1)
-                outs, _ = model(mb["images"], mb["calibs"], mb["img_sizes"], True,
-                                drops and drops.start(b0, b1))
+                outs = forward(mb, b0, b1)[0]
                 per = []
                 for lid, out in enumerate(outs):
                     b, q, t = (i.to(out["pred_3d_dim"].device)
@@ -84,12 +102,13 @@ def step_grads(model, m, batch, gen, micro, given=None):
         comp = sums[:, 0] / sums[:, 1].clamp(min=1e-12)
     for p in model.parameters():
         p.grad = None
-    total, terms = 0.0, {}
+    total, terms, props = 0.0, {}, []
     for b0, b1 in chunks:
         mb = _cut(batch, b0, b1)
         t_mb = _cut(tgt, b0, b1)
-        outs, depth_logits = model(mb["images"], mb["calibs"], mb["img_sizes"], True,
-                                   drops and drops.start(b0, b1))
+        outs, depth_logits, picked = forward(mb, b0, b1)
+        if picked is not None:
+            props.append((picked["idx"].cpu(), picked["scores"].cpu()))
         losses = {}
         for lid, out in enumerate(outs):
             per = L.layer_losses(out, t_mb, matched(out, t_mb, b0, b1, lid), num_boxes,
@@ -104,36 +123,44 @@ def step_grads(model, m, batch, gen, micro, given=None):
             terms[k] = terms.get(k, 0.0) + float(v.detach())
         del outs, depth_logits, losses, loss
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for n, p in model.named_parameters() if trained(n)}
+             for n, p in model.named_parameters() if arch.trained(n)}
     used = [tuple(torch.cat([matches[b0, lid][k] + (b0 if k == 0 else 0) for b0, _ in chunks])
                   for k in range(3)) for lid in range(m["dec_layers"])]
-    return total, grads, excess, used, terms
+    proposals = tuple(torch.cat(t) for t in zip(*props)) if props else None
+    return total, grads, excess, used, terms, proposals
 
 
-def train_steps(model_cfg, state, batches, drop_seed, lr, weight_decay, micro, device,
-                prec=f32, given=None):
+def train_steps(arch, model_cfg, state, batches, drop_seed, lr, weight_decay, micro, device,
+                prec=f32, given=None, given_picks=None):
     """Steps over `batches` (dicts of tensors on `device`) from `state`;
     given: per step, the assignment of every layer to train with (see
-    step_grads), or None.  Returns {"losses" [n], "grad" (the first step's
+    step_grads), or None; given_picks: per step, the proposal picks to
+    take, or None.  Returns {"losses" [n], "grad" (the first step's
     gradient norm of every trained leaf), "change" (each leaf's change after
     the last step), "excess" (per step, the largest of the given assignments'
     excess cost per target), "terms" (per step, each loss term), "assignment"
-    (per step, what was trained with)}."""
+    (per step, what was trained with)}, and for a model that picks
+    proposals "picks" and "proposal_scores" (per step, the picks taken and
+    every token's score)."""
     m = dict(model_cfg)
     m.setdefault("group_num", 11)
-    model = build(m, device)
+    model = arch.build(m, device)
     model.load_state_dict(state)
     model.set_precision(prec)
     for n, p in model.named_parameters():
-        p.requires_grad_(trained(n))
-    named = [(n, p) for n, p in model.named_parameters() if trained(n)]
+        p.requires_grad_(arch.trained(n))
+    named = [(n, p) for n, p in model.named_parameters() if arch.trained(n)]
     start = {n: p.detach().clone() for n, p in named}
     opt = L.AdamW(named, lr, weight_decay)
     gen = torch.Generator(device).manual_seed(drop_seed) if m["dropout"] > 0 else None
     out = {"losses": [], "terms": [], "excess": [], "assignment": []}
     for i, batch in enumerate(batches):
-        total, grads, excess, used, terms = step_grads(model, m, batch, gen, micro,
-                                                None if given is None else given[i])
+        total, grads, excess, used, terms, proposals = step_grads(
+            arch, model, m, batch, gen, micro, None if given is None else given[i],
+            None if given_picks is None else given_picks[i])
+        if proposals is not None:
+            out.setdefault("picks", []).append(proposals[0])
+            out.setdefault("proposal_scores", []).append(proposals[1])
         out["losses"].append(total)
         out["terms"].append(terms)
         out["assignment"].append(used)
@@ -160,20 +187,18 @@ def assignment(matched_q, mask):
 
 
 @torch.no_grad()
-def candidates(model_cfg, state, images, calibs, img_sizes, device, block=16, prec=f32):
+def candidates(arch, model_cfg, state, images, calibs, img_sizes, device, block=16, prec=f32):
     """[N, Q * C, 37] float64 numpy: every (query, class) of the last layer,
     index q * C + c, in a detection's columns: label, score, x2d, y2d, w2d,
     h2d, depth, 24 heading, 3 size, x3d, y3d, exp(-sigma)."""
-    m = dict(model_cfg)
-    m.setdefault("group_num", 11)
-    model = build(m, device)
+    model = arch.build(model_cfg, device)
     model.load_state_dict(state)
     model.set_precision(prec)
     rows = []
     for b0 in range(0, images.shape[0], block):
         sl = slice(b0, b0 + block)
-        outs, _ = model(images[sl].to(device), calibs[sl].to(device), img_sizes[sl].to(device))
-        out = outs[-1]
+        out = model(images[sl].to(device), calibs[sl].to(device),
+                    img_sizes[sl].to(device))[0][-1]
         B, Q, C = out["pred_logits"].shape
         box = out["pred_boxes"]
         x1, y1 = box[..., 0] - box[..., 2], box[..., 1] - box[..., 4]

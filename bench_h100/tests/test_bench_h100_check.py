@@ -3,7 +3,10 @@ agrees with the reference; each fault of core/faults.py planted in the
 program makes `correct` false through the rest of a run (the look for a
 card skipped); the fp8 control fails the limits; the reference's Philox
 masks match the published test vectors (and, on a card, the program's
-kernels' masks)."""
+kernels' masks).  The same for DINO's query path (`two_stage_dino`,
+reference/dino.py) at 128x256, whose 680 tokens hold the 550 training
+picks, where the reference takes the program's picks and `pick_excess`
+judges them."""
 
 import contextlib
 import json
@@ -19,26 +22,34 @@ from bench_h100.reference import drops
 
 BENCH = Path(__file__).resolve().parents[2] / "bench_h100"
 CELLS = {"train": ("r50.train_bs16", "train_bs16"), "stream": ("r50.stream_bs1", "stream_bs1")}
+# a provisional limit of the DINO cases, between the float32 program's
+# first-step pick_excess here (~6e-7) and the fp8 control's (~0.5)
+PICK_EXCESS = 0.05
 
 
-def tiny(kind, dtype="bf16"):
-    """(config, mix, limits) of a cell at 64x128, two images a batch."""
+def tiny(kind, dtype="bf16", dino=False):
+    """(config, mix, limits) of a cell at 64x128 (DINO's at 128x256), two
+    images a batch."""
     cell, traffic = CELLS[kind]
     config = json.loads((BENCH / "configs" / "monodetr_r50_384x1280.json").read_text())
-    config["input"] = {"height": 64, "width": 128}
+    config["input"] = {"height": 128, "width": 256} if dino else {"height": 64, "width": 128}
     config["model"]["dtype"] = dtype
     config["reference"]["micro_batch"] = 1  # two passes, as a large cell takes them
+    limits = json.loads((BENCH / "limits" / f"{cell}.json").read_text())["limits"]
+    if dino:
+        config["model"]["two_stage_dino"] = True
+        config["reference"]["model"] = "dino"
+        limits["pick_excess"] = PICK_EXCESS
     config["counts"] = counts.frozen_counts(config)
     mix = json.loads((BENCH / "mixes" / f"{traffic}.json").read_text())
     mix.update(batch=min(mix["batch"], 2), pool=3, warmup_batches=1, warmup_steps=1,
                check_frames=2)
-    limits = json.loads((BENCH / "limits" / f"{cell}.json").read_text())["limits"]
     return config, mix, limits
 
 
-def run(kind, fault=None, dtype="bf16"):
-    config, mix, limits = tiny(kind, dtype)
-    ctx = faults.FAULTS[kind][fault]() if fault else contextlib.nullcontext()
+def run(kind, fault=None, dtype="bf16", dino=False):
+    config, mix, limits = tiny(kind, dtype, dino)
+    ctx = faults.planted(kind, fault)() if fault else contextlib.nullcontext()
     with ctx:
         record, correct, shown = loops.run(config, mix, {"limits": limits}, 2 ** 31 + 77, 0.2,
                                            False, "cpu", time.perf_counter())
@@ -65,6 +76,37 @@ def test_the_fp8_control_fails_the_limits(kind):
         config, mix, 5, "cpu")
     correct, _ = check.verdict(numbers, limits)
     assert not correct, numbers
+
+
+def test_dino_program_in_float32_agrees_with_the_reference_given_its_picks():
+    record, correct = run("train", dtype="float32", dino=True)
+    assert correct, record["numbers"]
+    assert record["numbers"]["pick_excess"] <= 1e-5, record["numbers"]
+
+
+@pytest.mark.parametrize("fault", list(faults.FAULTS["train"]) + list(faults.PICK_FAULTS["train"]))
+def test_dino_a_fault_in_the_timed_path_is_not_correct(fault):
+    record, correct = run("train", fault, dtype="float32", dino=True)
+    assert not correct, record["numbers"]
+    if fault in faults.PICK_FAULTS["train"]:
+        # the picks are handed to the reference, so only pick_excess sees them
+        assert record["numbers"]["pick_excess"] > PICK_EXCESS, record["numbers"]
+
+
+def test_dino_the_fp8_control_fails_the_limits():
+    config, mix, limits = tiny("train", dino=True)
+    numbers, _ = control.train_control(config, mix, 5, "cpu")
+    correct, _ = check.verdict(numbers, limits)
+    assert not correct, numbers
+
+
+def test_pick_excess_reads_order_set_and_repeats():
+    scores = [[3.0, 1.0, 2.0, 0.5]]
+    assert check.pick_excess([[0, 2]], scores) == 0.0
+    assert check.pick_excess([[2, 0]], scores) == 1.0  # order swapped
+    assert check.pick_excess([[0, 1]], scores) == 1.0  # a wrong set
+    assert check.pick_excess([[0, 0]], scores) == float("inf")
+    assert check.pick_excess([[0, 2], [0, 2]], scores) == float("inf")
 
 
 def test_philox_known_answers():

@@ -1,8 +1,10 @@
 """The metric arithmetic on synthetic records: the window's rate, the 95th
 percentile, idle time as a union of intervals, component attribution, the
-roofline's least time; and the frozen counts of every configuration file,
-recomputed on the meta device."""
+roofline's least time; the frozen counts of every configuration file,
+recomputed on the meta device, and the DINO reference's counts against the
+standard's; the weights each configuration file's seed makes."""
 
+import hashlib
 import json
 from pathlib import Path
 from types import SimpleNamespace
@@ -11,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench_h100.core import counts, spec, trace
+from bench_h100.core import counts, spec, trace, weights
 
 REPO = Path(__file__).resolve().parents[2]
 BENCH = REPO / "bench_h100"
@@ -106,3 +108,46 @@ def test_roofline_least_time():
 def test_frozen_counts_match_the_configuration_file(name):
     config = json.loads((BENCH / "configs" / f"{name}.json").read_text())
     assert counts.frozen_counts(config) == config["counts"]
+
+
+@pytest.mark.parametrize("name,leaves,digest", [
+    ("monodetr_r50_384x1280", 536,
+     "d761e743c9fbb564b6418888c5f1b2bfb7523d55d15fbf434599c2bde9fcf388"),
+    ("monodetr_r101_768x2560", 791,
+     "bd515f05b6ba3c0fddfdd1a6aa628d657a89ca65cfe88d26695a12e456b7c6e7")])
+def test_weights_of_a_seed_are_unchanged(name, leaves, digest):
+    """Every leaf's name and bytes, in order, as the weights were made when
+    the cells' limits were measured (the sums frozen here)."""
+    config = spec.load_config(name)
+    state = weights.make_state(spec.reference(config), 2 ** 31 + 5, config, "cpu")
+    h = hashlib.sha256()
+    for n, t in state.items():
+        h.update(n.encode())
+        h.update(t.contiguous().numpy().tobytes())
+    assert (len(state), h.hexdigest()) == (leaves, digest)
+
+
+def test_dino_counts_add_the_proposal_branch_and_the_query_positions():
+    """At 384x1280 (S = 10,200 tokens) the training step of DINO's query
+    path counts, beyond the standard path's: the proposal branch's forward
+    over every token (its outputs reach no loss, so it has no backward),
+    and in each of the three decoder layers the query position's MLP of the
+    768-wide sine embedding (its input needs no gradient), and in the two
+    after the first the query scale's MLP; less the standard path's
+    reference-point layer."""
+    config = spec.load_config("monodetr_r50_384x1280")
+    m = config["model"]
+    dino = dict(config, model=dict(m, two_stage_dino=True),
+                reference=dict(config["reference"], model="dino"))
+    got, base = counts.frozen_counts(dino), counts.frozen_counts(config)
+    S, d, layers = 48 * 160 + 24 * 80 + 12 * 40 + 6 * 20, m["hidden_dim"], m["dec_layers"]
+    proposal = 2 * S * d * (d + m["num_classes"] + d + d + 6)
+    for train, Q in ((True, m["num_queries"] * m["group_num"]), (False, m["num_queries"])):
+        passes = 3 if train else 1  # forward, input and weight gradients
+        head = 2 * Q * (6 * 128 * d + d * d) + (2 * Q * 6 * 128 * d + 4 * Q * d * d) * train
+        scale = passes * 2 * (2 * Q * d * d)
+        ref_points = passes * 2 * Q * d * 2
+        want = proposal + layers * head + (layers - 1) * scale - ref_points
+        key = "train_flops_per_img" if train else "eval_flops_per_img"
+        assert got[key] - base[key] == want, (key, got[key] - base[key], want)
+    assert 6.5e9 < got["train_flops_per_img"] - base["train_flops_per_img"] < 7.5e9
