@@ -37,7 +37,9 @@ Phases, one line each (or a few), and any failure exits non-zero:
      f32 forward at B=2 against the same model through the plain versions;
   6. the training slice: the same model with f32 parameters, bf16 compute
      and dropout 0.1, 6 train steps at batch 16 on synthetic images and
-     targets, launch counters checked per step, ms/step and img/s; then
+     targets (the step's CUDA graphs captured on the second step and
+     replayed on the rest), launch counters checked (train_launches),
+     ms/step and img/s; then
      one f32 step at B=2 without dropout through the kernels against the
      same step through the plain versions (matches, losses, gradients);
   7. the opt-in configurations, the same model with its deformable
@@ -1066,6 +1068,18 @@ def phase_lap():
     return {"lap": report}
 
 
+def train_launches(per_step, n_steps, before=0, graphed=True):
+    """The port kernels' launches over n_steps training steps of one input
+    shape, made by a step object that made `before` steps of that shape
+    before them.  On a CUDA card the step object launches every kernel on
+    its first two steps of a shape (eager, capture: train/train_step.py:
+    TrainGraphs) and then the criterion's LAP alone, as a replay launches
+    the rest from its graphs; with `graphed` False (remat, data parallel)
+    every step launches every kernel."""
+    full = min(n_steps, max(0, 2 - before)) if graphed else n_steps
+    return {k: v * (n_steps if k == "lap" else full) for k, v in per_step.items()}
+
+
 def main_path_counts(per_run, n_runs, label):
     """The launch counts read after a main-path run: fail unless they are
     exactly per_run * n_runs (and 0 for every other kernel)."""
@@ -1272,7 +1286,8 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
             losses.append(step(b, 2e-4, gen))
             events[i + 1].record()
         torch.cuda.synchronize()
-        counts = main_path_counts(per_step, n_steps, label)
+        counts = main_path_counts(train_launches(per_step, n_steps, graphed=not cfg.get("remat")),
+                                  1, label)
     finally:
         _build.dtype_code = dtype_code
     values = np.stack([lv.values.cpu().numpy() for lv in losses])
@@ -1285,7 +1300,8 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
     log(f"{label}: {n_steps} train steps, batch {batch}, {size[0]}x{size[1]}, bf16 compute, f32 "
         f"parameters and AdamW state, dropout 0.1: loss_detr "
         + " ".join(f"{t:.3f}" for t in totals)
-        + f"; launches {counts} (want {per_step} per step); kernel dtypes "
+        + f"; launches {counts} (want {per_step} per step on the eager and capture steps, "
+        f"the LAP on every step); kernel dtypes "
         f"{sorted(str(d) for d in seen)} {'ok' if ok else 'FAIL'}")
     log(f"{label}: ms/step by CUDA events " + " ".join(f"{m:.1f}" for m in ms)
         + f"; steps {min(3, n_steps)}-{n_steps}: {steady:.1f} ms/step, "
@@ -1708,7 +1724,8 @@ def phase_handoff():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    counts = main_path_counts(DEFAULT_PER_STEP, HANDOFF_STEPS, "handoff")
+    counts = main_path_counts(train_launches(DEFAULT_PER_STEP, HANDOFF_STEPS, before=1), 1,
+                              "handoff")
     totals = [float(lv.as_dict()["loss_detr"]) for lv in losses]
 
     def same(on_card, batch):
@@ -1871,8 +1888,8 @@ def phase_clamp():
     torch.cuda.synchronize()
     gather_step = {k: v for k, v in DEFAULT_PER_STEP.items() if not k.startswith("msda_enc")}
     counts = {k: v for k, v in read_launches().items() if v}
-    want = {k: CLAMP_STEPS * (DEFAULT_PER_STEP[k] + gather_step.get(k, 0))
-            for k in DEFAULT_PER_STEP}
+    fused, gather = (train_launches(per, CLAMP_STEPS) for per in (DEFAULT_PER_STEP, gather_step))
+    want = {k: fused[k] + gather.get(k, 0) for k in DEFAULT_PER_STEP}
     finite = np.isfinite(r["traj_gather"] + r["traj_fused"]).all()
     ok = finite and r["max_rel_diff"] <= CLAMP_MAX_REL and counts == want
     log(f"clamp: validate_clamp_torch fused G=6 vs gather, {CLAMP_STEPS} bf16 steps batch "
@@ -2197,16 +2214,20 @@ def phase_bench():
     of BENCH_RUNS: exit 0, bench.py's JSON line as the last stdout line
     (its keys in its order, 3 positive runs, flops_per_img > 0, 0 < mfu <
     1), and the default path's launches over the bench's warm-up and
-    timed steps, plus the LAP of the FLOP count's step (its other kernels
-    run their plain versions).  Prints each JSON line on a line of its own;
-    returns the launch counts."""
+    timed steps (train_launches: with remat every step's, else the eager
+    and the capture step's and the LAP of every step), plus the LAP of the
+    FLOP count's step (its other kernels run their plain versions).
+    Prints each JSON line on a line of its own; returns the launch
+    counts."""
     from monodetr_torch import bench
 
     t0 = time.time()
     steps = bench.WARMUP_STEPS + bench.WINDOWS * bench.WINDOW_STEPS
-    want = {k: steps * v + (k == "lap") for k, v in DEFAULT_PER_STEP.items()}
     totals = dict.fromkeys(KERNELS, 0)
     for label, env in BENCH_RUNS:
+        graphed = env.get("BENCH_REMAT", "0") == "0"
+        want = {k: v + (k == "lap")
+                for k, v in train_launches(DEFAULT_PER_STEP, steps, graphed=graphed).items()}
         t1 = time.time()
         rc, counts, tail, lines = run_counted(BENCH_TOOL, [], REPO, 600,
                                               env=dict(os.environ, **env))

@@ -21,6 +21,14 @@ the norms' outputs too, on every device; the places where the JAX model
 computes in f32 whatever its dtype (reference points, the proposal
 branches, depth logits and bins, the heads' outputs and the depth fusion)
 are f32 here too.
+
+The forward is a chain of segments (utils/segments.py), cut at its spans:
+the backbone (with the images' cast), the input projections and
+positions, the depth predictor, the transformer's (models/transformer.py)
+and the heads.  Each reads tensors only through its arguments, parameters
+and constant tables, so that a training step on a CUDA card can replay it
+as CUDA graphs (train/train_step.py:TrainGraphs); elsewhere each is a
+plain call inside its span.
 """
 
 import math
@@ -29,7 +37,7 @@ import torch
 from torch import nn
 
 from ..ops.utils import grid_sample_bilinear, inverse_sigmoid
-from ..utils.trace import span
+from ..utils.segments import segment
 from .backbone import BACKBONE_NUM_CHANNELS, FrozenBatchNorm2d, ResNetBackbone
 from .depth_predictor import DepthPredictor
 from .layers import MLP, MultiheadAttention, conv_gn, forward_dtype
@@ -117,36 +125,57 @@ class MonoDETR(nn.Module):
         proposal_idx, the top-k token indices the decoder's queries came
         from."""
         dtype = forward_dtype(images.device, self.depthaware_transformer.level_embed.dtype)
+        B = images.shape[0]
         # NHWC memory seen as NCHW: channels_last, no copy
-        x = images.to(dtype).permute(0, 3, 1, 2)
-        with span("backbone"):
-            feats = self.backbone[0](x)
+        feats = segment("backbone", lambda im: self.backbone[0](im.to(dtype).permute(0, 3, 1, 2)),
+                        images)
+        srcs, pos = segment(None, self._project, *feats)
+        depth_logits, depth_tokens, weighted_depth, _ = segment(
+            "depth predictor",
+            lambda s, p: self.depth_predictor(s, p.reshape(B, -1, self.hidden_dim).to(dtype), gen),
+            srcs, pos[1])
+
+        def queries():
+            if self.query_free:
+                return None
+            if self.use_dab:
+                q = torch.cat([self.tgt_embed.weight, self.refpoint_embed.weight], 1)
+            else:
+                q = self.query_embed.weight
+            return q if train else q[:self.num_queries]
+
+        hs, refs_in, inter_dims, enc_class, enc_coord, idx = self.depthaware_transformer(
+            [s.permute(0, 2, 3, 1) for s in srcs], pos, queries, depth_tokens,
+            self.bbox_embed, self.dim_embed_3d, gen, self.class_embed, train, proposal_idx)
+        outs, enc_boxes = segment(None, self._heads, hs, refs_in, inter_dims, calibs, img_sizes,
+                                  weighted_depth, enc_coord)
+        out = dict(outs[-1])
+        out["pred_depth_map_logits"] = depth_logits
+        out["weighted_depth"] = weighted_depth
+        out["aux_outputs"] = outs[:-1]
+        if self.two_stage:
+            out["enc_outputs"] = {"pred_logits": enc_class, "pred_boxes": enc_boxes}
+        if idx is not None:
+            out["proposal_idx"] = idx
+        return out
+
+    def _project(self, *feats):
+        """The backbone's three levels -> the four projected levels [B, C,
+        h, w] and their position embeddings."""
         srcs = [self.input_proj[i](feats[i]) for i in range(3)]
         srcs.append(self.input_proj[3](feats[2]))
-        B = images.shape[0]
+        B = srcs[0].shape[0]
         if len(self.backbone) > 1:  # learned
             pos = [self.backbone[1](s.shape[2], s.shape[3])[None].expand(B, -1, -1, -1)
                    for s in srcs]
         else:
-            pos = [sine_pos_table(s.shape[2], s.shape[3], self.hidden_dim, images.device)[None]
+            pos = [sine_pos_table(s.shape[2], s.shape[3], self.hidden_dim, s.device)[None]
                    .expand(B, -1, -1, -1) for s in srcs]
+        return srcs, pos
 
-        with span("depth predictor"):
-            depth_logits, depth_tokens, weighted_depth, _ = self.depth_predictor(
-                srcs, pos[1].reshape(B, -1, self.hidden_dim).to(dtype), gen)
-
-        if self.query_free:
-            queries = None
-        elif self.use_dab:
-            queries = torch.cat([self.tgt_embed.weight, self.refpoint_embed.weight], 1)
-        else:
-            queries = self.query_embed.weight
-        if queries is not None and not train:
-            queries = queries[:self.num_queries]
-        hs, refs_in, inter_dims, enc_class, enc_coord, idx = self.depthaware_transformer(
-            [s.permute(0, 2, 3, 1) for s in srcs], pos, queries, depth_tokens,
-            self.bbox_embed, self.dim_embed_3d, gen, self.class_embed, train, proposal_idx)
-
+    def _heads(self, hs, refs_in, inter_dims, calibs, img_sizes, weighted_depth, enc_coord):
+        """Each decoder layer's outputs with the three-way depth fusion, and
+        two_stage's proposal boxes (None without)."""
         fy = calibs[:, 0, 0][:, None].float()  # focal (monodetr.py:242)
         outs = []
         for lvl in range(self.dec_layers):
@@ -176,16 +205,7 @@ class MonoDETR(nn.Module):
                 "pred_depth": torch.stack([depth_ave, depth_reg[:, :, 1]], -1),
                 "pred_angle": self.angle_embed[lvl](hs[lvl]).float(),
             })
-        out = dict(outs[-1])
-        out["pred_depth_map_logits"] = depth_logits
-        out["weighted_depth"] = weighted_depth
-        out["aux_outputs"] = outs[:-1]
-        if self.two_stage:
-            out["enc_outputs"] = {"pred_logits": enc_class,
-                                  "pred_boxes": torch.sigmoid(enc_coord)}
-        if idx is not None:
-            out["proposal_idx"] = idx
-        return out
+        return outs, None if not self.two_stage else torch.sigmoid(enc_coord)
 
 
 def _lecun_normal_(w, gen):

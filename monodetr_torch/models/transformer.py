@@ -21,6 +21,11 @@ As in the reference, the value of decoder self-attention is the raw `tgt`
 (the reference computes sa_v_proj and then overwrites it,
 depthaware_transformer.py:471 vs :477), so sa_v_proj does not exist here.
 Masks are all-valid at fixed input shapes, so valid ratios are 1.
+
+The segments (utils/segments.py) of the forward here: the levels'
+flattening, per encoder layer its sampling (`encoder MSDA`) and the rest
+of the layer, the decoder's first queries (and the proposal branches),
+and the whole decoder (`decoder`).
 """
 
 import math
@@ -32,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.utils import device_constant, inverse_sigmoid
+from ..utils.segments import segment
 from ..utils.trace import span
 from .layers import (MLP, LayerNorm, MultiheadAttention, checkpoint_with_gen, dropout, ffn,
                      forward_dtype)
@@ -155,10 +161,12 @@ class VisualEncoderLayer(nn.Module):
     def forward(self, src, pos, reference_points, spatial_shapes, gen=None):
         attn = self.self_attn
         if not (self.remat and torch.is_grad_enabled()):
-            with span("encoder MSDA"):
-                op, args = attn.sampling(src + pos, reference_points, src, spatial_shapes)
-                sampled = op(*args)
-            return self._after_sampling(src, sampled, gen)
+            def sample(s, q):
+                op, args = attn.sampling(s + q, reference_points, s, spatial_shapes)
+                return op(*args)
+
+            sampled = segment("encoder MSDA", sample, src, pos)
+            return segment(None, lambda s, x: self._after_sampling(s, x, gen), src, sampled)
         with span("encoder MSDA"):
             op, args = checkpoint(
                 lambda s, q: attn.sampling(s + q, reference_points, s, spatial_shapes), src, pos,
@@ -282,14 +290,16 @@ class DepthAwareTransformer(nn.Module):
             self.decoder.ref_point_head = MLP(6 * 128, d_model, d_model, 2)
             self.decoder.query_scale = MLP(d_model, d_model, d_model, 2)
 
-    def forward(self, srcs, pos_embeds, query_embed, depth_embed, bbox_heads, dim_heads,
+    def forward(self, srcs, pos_embeds, queries, depth_embed, bbox_heads, dim_heads,
                 gen=None, class_heads=None, train=False, proposal_idx=None):
         """srcs / pos_embeds: per level [B, h, w, C] (NHWC views);
-        query_embed: [Q, 2C] (standard), [Q, C + 6] (use_dab) or None;
-        depth_embed: [B, S16, C]; gen: the dropout generator in training,
-        else None; class_heads: the class heads (read by `two_stage`);
-        train: the training forward (`two_stage_dino` then takes
-        num_queries * group_num proposals); proposal_idx: [B, K] token
+        queries: a function that returns query_embed, [Q, 2C] (standard),
+        [Q, C + 6] (use_dab) or None, called inside the segment that makes
+        the decoder's queries (utils/segments.py: a segment reads parameters
+        itself); depth_embed: [B, S16, C]; gen: the dropout generator in
+        training, else None; class_heads: the class heads (read by
+        `two_stage`); train: the training forward (`two_stage_dino` then
+        takes num_queries * group_num proposals); proposal_idx: [B, K] token
         indices that the proposal variants take instead of their own top-k
         (None but in a check that holds two runs to the same picks).
 
@@ -299,13 +309,10 @@ class DepthAwareTransformer(nn.Module):
         two_stage, and the proposal indices [B, K], None unless
         two_stage or two_stage_dino)."""
         B = srcs[0].shape[0]
-        C = self.d_model
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
         dtype = forward_dtype(srcs[0].device, self.level_embed.dtype)
-        memory = torch.cat([s.reshape(B, -1, C) for s in srcs], 1).to(dtype)
-        pos_flat = torch.cat(
-            [p.reshape(B, -1, C) + self.level_embed[l] for l, p in enumerate(pos_embeds)],
-            1).to(dtype)
+        memory, pos_flat = segment(None, lambda s, p: self._flatten(s, p, dtype), srcs,
+                                   pos_embeds)
 
         enc_ref = device_constant(encoder_reference_points, (spatial_shapes,), memory.device)
         enc_ref = enc_ref[None, :, None, :].expand(B, -1, len(spatial_shapes), 2)
@@ -313,7 +320,34 @@ class DepthAwareTransformer(nn.Module):
             for layer in self.encoder.layers:
                 memory = layer(memory, pos_flat, enc_ref, spatial_shapes, gen)
 
-        enc_class = enc_coord = idx = None
+        tgt, query_pos, reference_points, enc_class, enc_coord, idx = segment(
+            None, lambda m, i: self._queries(m, queries(), spatial_shapes, dtype, bbox_heads,
+                                             class_heads, train, i),
+            memory, proposal_idx)
+        hs, refs_in, dims = segment(
+            "decoder",
+            lambda *a: self._decode(*a, spatial_shapes, dtype, bbox_heads, dim_heads, gen),
+            tgt, query_pos, reference_points, memory, depth_embed)
+        return hs, refs_in, dims, enc_class, enc_coord, idx
+
+    def _flatten(self, srcs, pos_embeds, dtype):
+        """The levels' tokens and their positions (with the level embedding),
+        [B, S, C] each."""
+        B, C = srcs[0].shape[0], self.d_model
+        memory = torch.cat([s.reshape(B, -1, C) for s in srcs], 1).to(dtype)
+        pos_flat = torch.cat(
+            [p.reshape(B, -1, C) + self.level_embed[l] for l, p in enumerate(pos_embeds)],
+            1).to(dtype)
+        return memory, pos_flat
+
+    def _queries(self, memory, query_embed, spatial_shapes, dtype, bbox_heads, class_heads,
+                 train, proposal_idx):
+        """The decoder's first queries: (tgt, query_pos (None where each
+        layer makes its own), reference points, and two_stage's encoder
+        outputs and the proposal indices, None where the configuration has
+        none)."""
+        B, C = memory.shape[0], self.d_model
+        query_pos = enc_class = enc_coord = idx = None
         if self.two_stage or self.two_stage_dino:
             proposals = device_constant(_proposal_logits, (spatial_shapes,), memory.device)
             valid = device_constant(_proposal_valid, (spatial_shapes,), memory.device)
@@ -362,30 +396,34 @@ class DepthAwareTransformer(nn.Module):
             tgt = tgt[None].expand(B, -1, -1)
             with torch.autocast(memory.device.type, enabled=False):  # f32, as in JAX
                 reference_points = torch.sigmoid(linear_f32(query_pos, self.reference_points))
-        per_layer_query_pos = self.use_dab or self.two_stage_dino
+        return tgt, query_pos, reference_points, enc_class, enc_coord, idx
 
+    def _decode(self, tgt, query_pos, reference_points, memory, depth_embed, spatial_shapes,
+                dtype, bbox_heads, dim_heads, gen):
+        """The decoder's layers with iterative refinement: (hs, the
+        reference points each layer took, the 3-D sizes)."""
+        per_layer_query_pos = self.use_dab or self.two_stage_dino
         hs, refs_in, dims = [], [], []
-        with span("decoder"):
-            for lid, layer in enumerate(self.decoder.layers):
-                ref_dim = reference_points.shape[-1]
-                ref_input = reference_points[:, :, None, :].expand(-1, -1, len(spatial_shapes),
-                                                                   ref_dim)
-                if per_layer_query_pos:
-                    # the sine embedding of the current reference (:384-408)
-                    query_pos = self.decoder.ref_point_head(
-                        gen_sineembed_for_position(reference_points).to(dtype))
-                    if lid != 0:
-                        query_pos = self.decoder.query_scale(tgt) * query_pos
-                tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, depth_embed, gen)
-                hs.append(tgt)
-                refs_in.append(reference_points)
-                dims.append(dim_heads[lid](tgt).float())
-                # iterative refinement, detached (:601-613)
-                tmp = bbox_heads[lid](tgt).float()
-                if ref_dim == 6:
-                    new_ref = tmp + inverse_sigmoid(reference_points)
-                else:
-                    new_ref = torch.cat([tmp[..., :2] + inverse_sigmoid(reference_points),
-                                         tmp[..., 2:]], -1)
-                reference_points = torch.sigmoid(new_ref).detach()
-        return torch.stack(hs), refs_in, torch.stack(dims), enc_class, enc_coord, idx
+        for lid, layer in enumerate(self.decoder.layers):
+            ref_dim = reference_points.shape[-1]
+            ref_input = reference_points[:, :, None, :].expand(-1, -1, len(spatial_shapes),
+                                                               ref_dim)
+            if per_layer_query_pos:
+                # the sine embedding of the current reference (:384-408)
+                query_pos = self.decoder.ref_point_head(
+                    gen_sineembed_for_position(reference_points).to(dtype))
+                if lid != 0:
+                    query_pos = self.decoder.query_scale(tgt) * query_pos
+            tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, depth_embed, gen)
+            hs.append(tgt)
+            refs_in.append(reference_points)
+            dims.append(dim_heads[lid](tgt).float())
+            # iterative refinement, detached (:601-613)
+            tmp = bbox_heads[lid](tgt).float()
+            if ref_dim == 6:
+                new_ref = tmp + inverse_sigmoid(reference_points)
+            else:
+                new_ref = torch.cat([tmp[..., :2] + inverse_sigmoid(reference_points),
+                                     tmp[..., 2:]], -1)
+            reference_points = torch.sigmoid(new_ref).detach()
+        return torch.stack(hs), refs_in, torch.stack(dims)

@@ -12,9 +12,20 @@ applies to every parameter whose last name component is not `bias`
 layer1 of the backbone (requires_grad=False) and the FrozenBN buffers are
 not parameters the optimizer sees, so they never move.  `adam` is the same
 rule without decay; `sgd` is momentum 0.9 with L2 decay.
+
+A step has a host part and a device part.  `step(lr)` counts the step and
+writes lr into a tensor on the parameters' device when it changed; the
+update (`update()`) then reads only device memory: the learning rate, the
+AdamW step counter (a float32 tensor, so its step size is computed on the
+device in f32, as the JAX step does), the gradients and the state.  The
+update is a segment (utils/segments.py), which a training step may replay
+as a CUDA graph: it then reads each gradient at the address the training
+step's graphs keep for it (train/train_step.py:TrainGraphs).
 """
 
 import torch
+
+from ..utils.segments import segment
 
 FROZEN_PREFIXES = ("backbone.0.body.conv1.", "backbone.0.body.layer1.")
 
@@ -41,10 +52,21 @@ class Optimizer:
         self.decays = [wants_decay(n) for n in self.names]
         self.weight_decay = float(weight_decay)
         self.step_count = 0
+        device = self.params[0].device if self.params else None
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self._lr = None  # the host value in self.lr
 
     def zero_grad(self):
         for p in self.params:
             p.grad = None
+
+    def step(self, lr):
+        """One update at learning rate lr."""
+        self.step_count += 1
+        if lr != self._lr:
+            self.lr.fill_(lr)
+            self._lr = lr
+        segment(None, self.update)
 
     def _grads(self):
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
@@ -58,19 +80,22 @@ class RefAdamW(Optimizer):
         self.b1, self.b2, self.eps = b1, b2, eps
         self.m = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.v = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.t = torch.zeros((), dtype=torch.float32, device=self.lr.device)  # the step count
+
+    def step_size(self):
+        """lr * sqrt(1 - b2^t) / (1 - b1^t) at the device's step count t, in
+        f32 on the device."""
+        return self.lr * torch.sqrt(1 - self.b2 ** self.t) / (1 - self.b1 ** self.t)
 
     @torch.no_grad()
-    def step(self, lr):
-        self.step_count += 1
+    def update(self):
         grads = [g.float() for g in self._grads()]
-        torch._foreach_mul_(self.m, self.b1)
-        torch._foreach_add_(self.m, grads, alpha=1 - self.b1)
+        # b1 m + (1 - b1) g in one pass, so that the update makes as many
+        # passes as with a host step size
+        torch._foreach_lerp_(self.m, grads, 1 - self.b1)
         torch._foreach_mul_(self.v, self.b2)
         torch._foreach_addcmul_(self.v, grads, grads, value=1 - self.b2)
-        # the step size in f32, as the JAX step computes it on the device
-        t = torch.tensor(float(self.step_count), dtype=torch.float32)
-        step_size = (torch.tensor(lr, dtype=torch.float32) * torch.sqrt(1 - self.b2 ** t)
-                     / (1 - self.b1 ** t)).item()
+        self.t.add_(1.0)
         denom = torch._foreach_sqrt(self.v)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(self.m, denom)
@@ -78,7 +103,8 @@ class RefAdamW(Optimizer):
             dec = [p for p, d in zip(self.params, self.decays) if d]
             upd_dec = [u for u, d in zip(upd, self.decays) if d]
             torch._foreach_add_(upd_dec, dec, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-step_size)
+        torch._foreach_mul_(upd, self.step_size())
+        torch._foreach_sub_(self.params, upd)
 
     def state_dict(self):
         return {"step": self.step_count, "m": dict(zip(self.names, self.m)),
@@ -86,6 +112,7 @@ class RefAdamW(Optimizer):
 
     def load_state_dict(self, state):
         self.step_count = int(state["step"])
+        self.t.fill_(self.step_count)
         for i, n in enumerate(self.names):
             self.m[i].copy_(state["m"][n])
             self.v[i].copy_(state["v"][n])
@@ -100,13 +127,14 @@ class SGD(Optimizer):
         self.m = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
 
     @torch.no_grad()
-    def step(self, lr):
-        self.step_count += 1
-        for m, p, g, d in zip(self.m, self.params, self._grads(), self.decays):
-            m.mul_(0.9).add_(g.float())
-            if d:
-                m.add_(p, alpha=self.weight_decay)
-            p.add_(m, alpha=-lr)
+    def update(self):
+        torch._foreach_mul_(self.m, 0.9)
+        torch._foreach_add_(self.m, [g.float() for g in self._grads()])
+        if self.weight_decay:
+            torch._foreach_add_([m for m, d in zip(self.m, self.decays) if d],
+                                [p for p, d in zip(self.params, self.decays) if d],
+                                alpha=self.weight_decay)
+        torch._foreach_sub_(self.params, torch._foreach_mul(self.m, self.lr))
 
     def state_dict(self):
         return {"step": self.step_count, "m": dict(zip(self.names, self.m))}

@@ -26,7 +26,11 @@ gloo ranks sharing the card equals one process's step on their images.
 Under CUDA's bf16 autocast every norm and layer output of each path is
 bf16, as the JAX model's.  The eval step's CUDA graph replays the eager
 step's detections bit for bit, in f32 and under bf16 autocast, and sees
-weights loaded in place, a cleared table cache and moved parameters.
+weights loaded in place, a cleared table cache and moved parameters.  The
+training step's CUDA graphs replay the eager step: bit for bit at lr 0 on
+every query variant, with the generator's state equal after every step,
+and within stated bounds after updates; a moved parameter makes the step
+eager once and capture again; replays make no synchronizing call.
 """
 
 import contextlib
@@ -1327,3 +1331,214 @@ def test_eval_step_graphs_of_two_shapes_share_a_pool(cuda):
                 kinds.append(kind)
                 assert torch.equal(out, _eager(model, f, contextlib.nullcontext))
     assert kinds == ["eager"] * 2 + ["capture"] * 2 + ["replay"] * 4
+
+
+TRAIN_CFG = dict(msda_impl="fused", msda_window=6, dec_msda_impl="sep", enc_layers=2,
+                 dec_layers=2, dropout=0.1)
+
+
+def _train_call(step, batch, lr, gen):
+    """step(batch, lr, gen), its losses on the host, and what its `train
+    step` root says the call did."""
+    losses = step(batch, lr, gen).values.cpu()
+    root = trace.last("train step", 1)[0]
+    kind = ("replay" if root.counts.get("train_graph_replay") else
+            "capture" if root.counts.get("train_graph_capture") else "eager")
+    return losses, kind, root
+
+
+def _train_setup(cuda, variant=None, seed=0, n=4):
+    """A bf16 training set-up (2 + 2 layers, dropout 0.1): the config, a
+    model, the criterion and n batches of 2 images at 128x256."""
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.train.synthetic import SyntheticLoader
+    from monodetr_torch.train.train_step import batch_to_device
+
+    cfg = dict(TRAIN_CFG)
+    if variant is not None:
+        cfg.update({variant: True}, **({"group_num": 1} if variant == "two_stage" else {}))
+    model = build_monodetr(cfg, seed=seed).to(cuda)
+    batches = [batch_to_device(b, cuda) for b, _ in SyntheticLoader(n, 2, seed + 7, 128, 256)]
+    return cfg, model, SetCriterion(cfg), batches
+
+
+def _fresh_step(model, crit, opt=None):
+    """A new step object, whose first call runs eagerly."""
+    from monodetr_torch.train.optimizer import build_optimizer
+    from monodetr_torch.train.train_step import make_train_step
+
+    opt = build_optimizer({"type": "adamw"}, model) if opt is None else opt
+    return make_train_step(model, crit, opt, torch.bfloat16), opt
+
+
+def _grad_norms(model):
+    """{name: the norm of its .grad} of the parameters that have one."""
+    return {n: p.grad.double().norm() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def test_train_step_replays_its_cuda_graphs(cuda):
+    """make_train_step on the card, bf16, 2 + 2 layers at 128x256, B=2,
+    dropout 0.1, lr 2e-4: 4 steps of one step object (eager, capture,
+    replay, replay, by the counters of their `train step` roots) against two
+    chains of 4 eager steps (a fresh step object each, on the chain's
+    optimizer), all from the same weights, batches and generator seed.  The
+    first step's losses are equal bit for bit and the generators' states
+    after every step.  The backward is not deterministic (bf16 weight
+    gradients and value gradients summed in another order from run to run),
+    and Adam's first steps move every entry by about lr whatever the size
+    of its gradient, so a gradient that round-off turns over moves its
+    entry by 2 lr: steps 2-4's losses agree to 3e-2 relative, and the
+    parameters' change after 4 steps departs from the first eager chain's
+    (the median over the parameters of the gap's norm over the change's)
+    by at most twice the second eager chain's departure, plus 1e-3.  The
+    update itself is exact: after every step the parameters equal, bit for
+    bit, an eager RefAdamW's on a copy that takes the step's own .grad (the
+    graphs' buffers, which stay each parameter's .grad).  A replayed root
+    holds the segments' spans and counts no kernel launch but the LAP's."""
+    import copy
+
+    from monodetr_torch.train.optimizer import RefAdamW
+
+    _, model, crit, batches = _train_setup(cuda)
+    twins = [copy.deepcopy(model) for _ in range(2)]
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    shadow = RefAdamW([(n, torch.nn.Parameter(p.clone()))
+                       for (n, p), q in zip(start.items(), model.parameters())
+                       if q.requires_grad])
+    step, opt = _fresh_step(model, crit)
+    assert shadow.names == opt.names
+    eager_opts = [_fresh_step(t, crit)[1] for t in twins]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    gens = [torch.Generator(device=cuda).manual_seed(3) for _ in twins]
+    kinds, roots = [], []
+    for i, b in enumerate(batches):
+        got, kind, root = _train_call(step, b, 2e-4, gen)
+        for s, p in zip(shadow.params, opt.params):
+            s.grad = p.grad.clone()
+        shadow.step(2e-4)
+        assert all(torch.equal(s, p) for s, p in zip(shadow.params, opt.params)), kind
+        kinds.append(kind)
+        roots.append(root)
+        for t, o, g in zip(twins, eager_opts, gens):
+            want, eager_kind, _ = _train_call(_fresh_step(t, crit, o)[0], b, 2e-4, g)
+            assert eager_kind == "eager"
+            assert torch.equal(gen.get_state(), g.get_state()), i
+            if i == 0:
+                assert torch.equal(got, want)
+            else:
+                assert torch.allclose(got, want, rtol=3e-2, atol=1e-6), (i, got, want)
+    assert kinds == ["eager", "capture", "replay", "replay"]
+    assert opt.step_count == eager_opts[0].step_count == 4
+
+    def change_gap(a, b):
+        gaps = []
+        for (n, p), q in zip(a.named_parameters(), b.parameters()):
+            d = (q.detach() - start[n]).norm()
+            if d > 0:
+                gaps.append(float((p.detach() - q.detach()).norm() / d))
+        return float(np.median(gaps))
+
+    graph_gap, eager_gap = change_gap(model, twins[0]), change_gap(twins[1], twins[0])
+    assert graph_gap <= 2 * eager_gap + 1e-3, (graph_gap, eager_gap)
+    for root in roots[2:]:
+        assert {"backbone", "depth predictor", "encoder", "encoder MSDA", "decoder",
+                "forward", "criterion", "backward", "optimizer"} <= set(root.spans)
+        assert "decoder MSDA" not in root.spans
+        assert {k for k, v in root.counts.items() if v} == {"train_graph_replay", "lap"}
+    assert "decoder MSDA" in roots[1].spans and roots[1].counts.get("msda_enc_fused")
+    bufs = [p.grad for p in opt.params]
+    step(batches[0], 2e-4, gen)
+    assert all(p.grad is g for p, g in zip(opt.params, bufs))
+
+
+@pytest.mark.parametrize("variant", [None, "two_stage", "use_dab", "two_stage_dino"])
+def test_train_step_replays_equal_the_eager_step_at_lr_0(cuda, variant):
+    """At lr 0 the weights never move, so every step is a function of its
+    batch and of the generator's state alone: each call of one step object
+    (eager, capture, replay, replay, replay) gives two fresh eager steps'
+    losses bit for bit, with the same generator state before and after;
+    the last two replays take the same batch, so they differ only by their
+    dropout masks, which are fresh draws and the eager step's.  The
+    backward is not deterministic (bf16 weight gradients, value gradients
+    summed in another order): each parameter's gradient departs from the
+    first eager step's by at most 1e-2 of its norm plus 4 times the second
+    eager step's departure (the gradients that are round-off alone), plus
+    1e-6 of all gradients' norm."""
+    import copy
+
+    _, model, crit, batches = _train_setup(cuda, variant)
+    batches = batches[:3] + batches[2:3]
+    twins = [copy.deepcopy(model) for _ in range(2)]
+    step, opt = _fresh_step(model, crit)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    gen_e = torch.Generator(device=cuda)
+    kinds, losses = [], []
+    for b in batches + batches[:1]:
+        state = gen.get_state()
+        wants = []
+        for t in twins:
+            gen_e.set_state(state)
+            wants.append(_train_call(_fresh_step(t, crit)[0], b, 0.0, gen_e)[0])
+        got, kind, _ = _train_call(step, b, 0.0, gen)
+        kinds.append(kind)
+        losses.append(got)
+        assert torch.equal(got, wants[0]) and torch.equal(got, wants[1]), (kind, got, wants)
+        assert torch.equal(gen.get_state(), gen_e.get_state())
+        norms = _grad_norms(twins[0])
+        total = float(sum(v ** 2 for v in norms.values()) ** 0.5)
+        params = [dict(t.named_parameters()) for t in (model, *twins)]
+        for n, norm in norms.items():
+            g, ga, gb = (d[n].grad.double() for d in params)
+            assert (g - ga).norm() <= 1e-2 * norm + 4 * (gb - ga).norm() + 1e-6 * total, n
+    assert kinds == ["eager", "capture", "replay", "replay", "replay"]
+    assert not torch.equal(losses[2], losses[3])
+    for p, q in zip(model.parameters(), twins[0].parameters()):
+        assert torch.equal(p, q)
+
+
+def test_train_step_recaptures_when_a_parameter_moves(cuda):
+    """Every parameter moved (new storage) after a replay: the next call
+    runs eagerly, the one after captures anew and the next replays, each
+    equal to a fresh eager step bit for bit (lr 0), the gradients in new
+    buffers."""
+    import copy
+
+    _, model, crit, batches = _train_setup(cuda)
+    twin = copy.deepcopy(model)
+    step, opt = _fresh_step(model, crit)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gen_e = torch.Generator(device=cuda)
+    assert [_train_call(step, b, 0.0, gen)[1] for b in batches[:3]] == \
+        ["eager", "capture", "replay"]
+    old = [p.grad for p in opt.params]
+    for p in model.parameters():
+        p.data = p.data.clone()
+    kinds = []
+    for b in batches[:3]:
+        gen_e.set_state(gen.get_state())
+        want, _, _ = _train_call(_fresh_step(twin, crit)[0], b, 0.0, gen_e)
+        got, kind, _ = _train_call(step, b, 0.0, gen)
+        kinds.append(kind)
+        assert torch.equal(got, want), kind
+    assert kinds == ["eager", "capture", "replay"]
+    assert all(p.grad is not g for p, g in zip(opt.params, old))
+
+
+def test_train_step_replays_make_no_synchronizing_call(cuda):
+    """Replays of the training step's graphs (after the eager call and
+    the capture) under torch.cuda.set_sync_debug_mode("error")."""
+    _, model, crit, batches = _train_setup(cuda, n=5)
+    step, _ = _fresh_step(model, crit)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for b in batches[:2]:
+        step(b, 2e-4, gen)
+    torch.cuda.synchronize()
+    out = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[2:]:
+            out.append(step(b, 2e-4, gen).values)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [r.counts.get("train_graph_replay") for r in trace.last("train step", 3)] == [1] * 3
+    assert torch.isfinite(torch.stack(out)).all()

@@ -311,6 +311,85 @@ def test_eval_graph_share_reads_the_window_s_replays():
     assert read("eval_graph_share.stream", record, _stream_ring()) is None
 
 
+def _train_graph_ring(window_counts):
+    """2 set-up steps (eager, capture), the window's, 2 profiled replays;
+    as the program writes them, with the prefetcher's roots between."""
+    replay = {"train_graph_replay": 1, "lap": 1}
+    ring = []
+    for counts in [{"msda_enc_fused": 3, "lap": 1}, {"train_graph_capture": 1}] \
+            + window_counts + [replay] * 2:
+        ring += [_root("data wait", 1), _root("train step", 30)._replace(counts=counts)]
+    return ring
+
+
+def test_train_graph_share_reads_the_window_s_replays():
+    replay, eager = {"train_graph_replay": 1, "lap": 1}, {"msda_enc_fused": 3, "lap": 1}
+    record = {"kind": "train", "window": {"steps": 4}, "trace": {"steps": 2}}
+    ring = _train_graph_ring([replay, eager, replay, replay])
+    assert read("train_graph_share.train", record, ring) == pytest.approx(75.0)
+    assert read("train_graph_share.train", record, _train_graph_ring([replay] * 4)) == 100.0
+    # the set-up's capture is the only root that counts the mechanism
+    assert read("train_graph_share.train", record, _train_graph_ring([eager] * 4)) == 0.0
+    assert read("train_graph_share.train", STREAM_RECORD, ring + _stream_ring()) is None
+    assert read("train_graph_share.train", record, ring[-9:]) is None  # window out of the ring
+    # a program without the graphs: its roots count kernels only
+    parent = [r._replace(counts=eager) if r.name == "train step" else r for r in ring]
+    assert read("train_graph_share.train", record, parent) is None
+    assert read("train_graph_share.train", record, _train_ring()) is None
+    assert read("train_graph_share.train", TRAIN_RECORD, _graph_ring([{}] * 3)) is None
+
+
+def test_the_train_step_on_the_cpu_never_captures():
+    """On the CPU every step runs eagerly: no root counts a capture or a
+    replay, and every step's root holds the spans inside the segments."""
+    from monodetr_torch.config import MONODETR_MODEL
+    from monodetr_torch.models.criterion import SetCriterion
+    from monodetr_torch.models.monodetr import build_monodetr
+    from monodetr_torch.train.optimizer import build_optimizer
+    from monodetr_torch.train.synthetic import SyntheticLoader
+    from monodetr_torch.train.train_step import batch_to_device, make_train_step
+
+    cfg = dict(MONODETR_MODEL, enc_layers=1, dec_layers=1, dtype="float32")
+    model = build_monodetr(cfg, seed=0)
+    opt = build_optimizer({"type": "adamw"}, model)
+    step = make_train_step(model, SetCriterion(cfg), opt)
+    gen = torch.Generator().manual_seed(0)
+    before = trace.counts()
+    for b, _ in SyntheticLoader(3, 1, 0, 64, 128):
+        step(batch_to_device(b, "cpu"), 2e-4, gen)
+    for r in trace.last("train step", 3):
+        assert not {"train_graph_capture", "train_graph_replay"} & set(r.counts)
+        assert {"backbone", "encoder MSDA", "decoder MSDA", "matcher"} <= set(r.spans)
+    after = trace.counts()
+    for c in ("train_graph_capture", "train_graph_replay"):
+        assert after.get(c, 0) == before.get(c, 0)
+    assert opt.step_count == 3 and float(opt.t) == 3.0
+
+
+def test_segments_run_in_their_span_or_go_to_the_routed_runner():
+    """segment(name, fn, *args) is fn(*args) inside span(name) (no span for
+    None); routed(run) hands the calls on its thread to run(name, fn,
+    args), and routed(None) inside it runs them as written again."""
+    from monodetr_torch.utils.segments import routed, segment
+
+    with span("seg root"):
+        assert segment("seg inner", lambda a, b: a + b, 2, 3) == 5
+        assert segment(None, lambda: 7) == 7
+    root, = trace.last("seg root", 1)
+    assert set(root.spans) == {"seg inner"}
+    calls = []
+
+    def run(name, fn, args):
+        calls.append((name, args))
+        with routed(None):
+            return fn(*args)
+
+    with routed(run):
+        assert segment("seg inner", lambda a: segment("nested", lambda: a * 2), 4) == 8
+    assert calls == [("seg inner", (4,))]
+    assert segment(None, lambda: 1) == 1 and len(calls) == 1
+
+
 def test_the_eval_step_on_the_cpu_never_captures():
     from monodetr_torch.config import MONODETR_MODEL
     from monodetr_torch.models.monodetr import build_monodetr

@@ -244,3 +244,29 @@ def test_checkpoint_round_trip_and_resume(weights, jax_train_step, tmp_path):
         assert torch.equal(a, b)
     for name, p in fresh.named_parameters():
         assert torch.equal(p, dict(model.named_parameters())[name]), name
+
+
+def test_ref_adamw_step_size_on_the_device_is_the_host_formula():
+    """The step size lr * sqrt(1 - b2^t) / (1 - b1^t) that RefAdamW
+    computes from its device tensors (the step counter and lr, both f32)
+    equals, to 1 ulp, the f32 formula from the host's step count for steps
+    1-1000, and again after load_state_dict sets the counter."""
+    lr = 2e-4
+    opt = RefAdamW([("w", torch.nn.Parameter(torch.zeros(3)))], 0.0)
+    opt.lr.fill_(lr)
+
+    def host(step):
+        t = torch.tensor(float(step), dtype=torch.float32)
+        return (torch.tensor(lr, dtype=torch.float32) * torch.sqrt(1 - opt.b2 ** t)
+                / (1 - opt.b1 ** t))
+
+    def ulps(a, b):
+        return abs(int(a.view(torch.int32)) - int(b.view(torch.int32)))
+
+    for step in range(1, 1001):
+        opt.t.add_(1.0)
+        assert ulps(opt.step_size(), host(step)) <= 1, step
+    fresh = RefAdamW([("w", torch.nn.Parameter(torch.zeros(3)))], 0.0)
+    fresh.lr.fill_(lr)
+    fresh.load_state_dict(dict(opt.state_dict(), step=617))
+    assert fresh.step_count == 617 and ulps(fresh.step_size(), host(617)) <= 1

@@ -92,9 +92,10 @@ def train_one(impl, window, state0, batches, steps, lr_peak, warmup, device):
     train_step = make_train_step(model, SetCriterion(cfg), optimizer, torch.bfloat16)
     traj = []
     t0 = time.time()
+    gen = torch.Generator(device=device)  # one generator, so the step's CUDA graphs replay
     for i in range(steps):
         lr = lr_peak * min(1.0, (i + 1) / warmup)
-        gen = torch.Generator(device=device).manual_seed(1000 + i)
+        gen.manual_seed(1000 + i)
         losses = train_step(batches[i % len(batches)], lr, gen)
         total = float(losses.as_dict()["loss_detr"])
         traj.append(total)
