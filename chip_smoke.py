@@ -1073,7 +1073,7 @@ def train_launches(per_step, n_steps, before=0, graphed=True):
     shape, made by a step object that made `before` steps of that shape
     before them.  On a CUDA card the step object launches every kernel on
     its first two steps of a shape (eager, capture: train/train_step.py:
-    TrainGraphs) and then the criterion's LAP alone, as a replay launches
+    StepGraphs) and then the criterion's LAP alone, as a replay launches
     the rest from its graphs; with `graphed` False (remat, data parallel)
     every step launches every kernel."""
     full = min(n_steps, max(0, 2 - before)) if graphed else n_steps

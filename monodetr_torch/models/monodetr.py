@@ -27,7 +27,7 @@ the backbone (with the images' cast), the input projections and
 positions, the depth predictor, the transformer's (models/transformer.py)
 and the heads.  Each reads tensors only through its arguments, parameters
 and constant tables, so that a training step on a CUDA card can replay it
-as CUDA graphs (train/train_step.py:TrainGraphs); elsewhere each is a
+as CUDA graphs (train/train_step.py:StepGraphs); elsewhere each is a
 plain call inside its span.
 """
 

@@ -20,7 +20,7 @@ AdamW step counter (a float32 tensor, so its step size is computed on the
 device in f32, as the JAX step does), the gradients and the state.  The
 update is a segment (utils/segments.py), which a training step may replay
 as a CUDA graph: it then reads each gradient at the address the training
-step's graphs keep for it (train/train_step.py:TrainGraphs).
+step's graphs keep for it (train/train_step.py:StepGraphs).
 """
 
 import torch

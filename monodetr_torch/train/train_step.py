@@ -22,10 +22,11 @@ zero_grad, data parallel's gradient sum and the loss stacking are the
 root's own time.  `batch_to_device` and the eval step (`eval step`: the
 eval forward and the top-k) are roots of their own.
 
-On a CUDA card the eval step replays a CUDA graph of its body
-(make_eval_step), and the training step replays CUDA graphs of the
-model's forward segments, their backwards and the optimizer's update,
-with the criterion eager between them (make_train_step, TrainGraphs).
+On a CUDA card both steps replay CUDA graphs by one mechanism
+(StepGraphs): the eval step one graph of its whole body (make_eval_step),
+the training step graphs of the model's forward segments, their
+backwards and the optimizer's update, with the criterion eager between
+them (make_train_step).
 """
 
 import contextlib
@@ -73,7 +74,7 @@ def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32, dp
     that every dropout draws from (None: no dropout).
 
     On a CUDA card the model's forward segments, their backwards and the
-    optimizer's update replay CUDA graphs (TrainGraphs), while the
+    optimizer's update replay CUDA graphs (StepGraphs), while the
     criterion runs eagerly between the forward and the backward.  The step
     runs eagerly throughout on the CPU, with data parallel (`dp`), and
     with any of the model's remat scopes (the recompute sets the
@@ -81,13 +82,14 @@ def make_train_step(model, criterion, optimizer, compute_dtype=torch.float32, dp
     loss_keys = []
     autocast = compute_dtype != torch.float32
     remat = any(getattr(m, "remat", False) for m in model.modules())
-    graphs = None if dp is not None or remat else TrainGraphs(model, optimizer)
+    graphs = None if dp is not None or remat else StepGraphs(model, "train", optimizer.params)
 
     def train_step(batch, lr, gen=None):
         with span("train step"):
             model.train()
             device = batch["images"].device
-            run = graphs.begin(batch, gen) if graphs and device.type == "cuda" else None
+            run = (graphs.begin((batch["images"], batch["calibs"], batch["img_sizes"]), gen)
+                   if graphs and device.type == "cuda" else None)
             with run or contextlib.nullcontext():
                 with span("forward"):
                     with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
@@ -122,71 +124,130 @@ def make_eval_step(model, topk=50, threshold=0.2):
     the top-k under no_grad (monodetr_tpu/train/train_step.py:85-97; as
     there, `threshold` is the decode's, applied on the host).
 
-    On a CUDA card the body (model.eval(), the forward, the top-k) becomes
-    a CUDA graph, one for each key: the inputs' shapes and dtypes, their
-    device, autocast's state and dtype on CUDA, and the TF32 switches of
-    matmul and cuDNN (`topk` is the step's own).  A key's first call runs
-    eagerly: it fills the constant tables and picks the cuDNN and cuBLAS
-    algorithms.  Its second call captures the body and replays it, and
-    later calls replay.  A one-off caller therefore never captures, and a
-    capture records only work already run once.  A replay copies the
-    inputs into the graph's own buffers and returns a clone of the graph's
-    output, never the buffer itself, so an output held from one call is
-    not overwritten by the next.  The capture runs under a nested
-    torch.autocast with its weight cache off: the casts of the f32
-    parameters are nodes of the graph, read from the parameters at every
-    replay, so weights loaded in place and a caller's autocast left and
-    entered again are both seen.  A parameter or buffer moved or replaced
-    (its address changed) makes the next call of every key eager again,
-    and the one after it re-capture; the model's parameters and buffers
-    are those it had at the step's first call on the card.  All the step's graphs share
-    one memory pool, and each keeps the constant tables of its capture
-    (ops/utils.py:held_constants).  On the CPU every call runs eagerly.
+    On a CUDA card the body (model.eval(), the forward, the top-k) is one
+    CUDA graph for each key, with no autograd node (StepGraphs; `topk` is
+    the step's own).  A replay copies the inputs into the graph's buffers
+    and returns a clone of the graph's output, never the buffer itself, so
+    an output held from one call is not overwritten by the next, and puts
+    a model left in training mode back into eval mode, as an eager call
+    leaves it.  On the CPU every call runs eagerly.
 
-    Each call is the root span `eval step`; a capture counts
-    `eval_graph_capture` in it, a replay `eval_graph_replay`
-    (utils/trace.py).  A replay runs no Python of the model, so its root
-    holds no inner span (`backbone`, `decoder`, ...) and no kernel launch
-    counts: those appear on the eager and capture calls only."""
+    Each call is the root span `eval step`.  A replay runs no Python of
+    the model, so its root holds no inner span (`backbone`, `decoder`,
+    ...) and no kernel launch counts: those appear on the eager and
+    capture calls only."""
     from ..eval.decode import extract_dets_from_outputs
 
     def body(images, calibs, img_sizes):
         model.eval()
         return extract_dets_from_outputs(model(images, calibs, img_sizes), topk=topk)
 
-    graphs = EvalGraphs(model, body)
+    graphs = StepGraphs(model, "eval")
 
     @torch.no_grad()
     def eval_step(images, calibs, img_sizes):
+        inputs = (images, calibs, img_sizes)
         with span("eval step"):
             if images.device.type != "cuda":
-                return body(images, calibs, img_sizes)
-            return graphs(images, calibs, img_sizes)
+                return body(*inputs)
+            with graphs.begin(inputs) as run:
+                if run.eager:
+                    return body(*inputs)
+                if model.training:
+                    model.eval()
+                return run(None, body, inputs).clone()
 
     return eval_step
 
 
-class _Entry:
-    """One key's state: the model's tensor addresses at its last eager
-    call, the constant tables that call used, and, once captured, the
-    graph, its input buffers and its output."""
-
-    __slots__ = ("state", "tables", "graph", "inputs", "out")
-
-    def __init__(self, state):
-        self.state, self.tables, self.graph = state, {}, None
+def _autocast_dtype():
+    """CUDA autocast's dtype where it is on, else None."""
+    return torch.get_autocast_dtype("cuda") if torch.is_autocast_enabled("cuda") else None
 
 
-class EvalGraphs:
-    """The eval step's CUDA graphs by key (make_eval_step's policy).
-    `body(images, calibs, img_sizes)` is the step's work, run eagerly or
-    captured."""
+def _uncached_autocast():
+    """The caller's CUDA autocast once more, nested, with its weight cache
+    off: a capture under it records the casts of the f32 parameters as
+    graph nodes, which read the parameters at every replay."""
+    amp = _autocast_dtype()
+    return (torch.autocast("cuda", dtype=amp, cache_enabled=False) if amp is not None
+            else contextlib.nullcontext())
 
-    def __init__(self, model, body):
-        self.model, self.body = model, body
+
+class StepGraphs:
+    """A step's CUDA graphs by key on a CUDA card: the eval step's (`kind`
+    "eval": its whole body, one graph) and the training step's ("train",
+    with the optimizer's `params`: the model's forward segments, their
+    backwards and the optimizer's update).
+
+    The key (`key`) is the model inputs' shapes and dtypes and their
+    device, autocast's state and dtype on CUDA, the matmul and cuDNN TF32
+    switches, every module's `plain_ops` (the kernels or their plain
+    versions) and the generator that the graphs draw from (None for eval).
+    A key's first call runs eagerly: it fills the constant tables and
+    picks the cuDNN and cuBLAS algorithms, and is the only warm-up, so a
+    one-off caller never captures and a capture records only work already
+    run once.  Its second call captures each graph in the order in which
+    they run and replays it as it is captured; later calls replay them in
+    that order (another order raises).  A parameter or buffer moved or
+    replaced (its address changed: `state`) makes the next call of every
+    key eager again, and the one after it capture anew; the model's
+    parameters and buffers are those it had at the object's first call.
+
+    Every capture runs on the object's own stream in thread-local mode
+    (`capturing`; the prefetcher's thread may copy to the card meanwhile),
+    after one empty_cache before the key's capture, and under a nested
+    autocast with its weight cache off (_uncached_autocast), so weights
+    loaded in place and a caller's autocast left and entered again are
+    both seen.  All graphs of one object share one memory pool (a new one
+    after a moved tensor); each key keeps the constant tables of its eager
+    call and its capture (ops/utils.py:held_constants).  A call that
+    captures counts `eval_graph_capture` or `train_graph_capture` (by
+    `kind`) in its root span, a call that replays `eval_graph_replay` or
+    `train_graph_replay`, however many graphs it replays.
+
+    The training step's segments (utils/segments.py: the model's forward
+    is cut at its spans, and the update is one more) are each one autograd
+    node (TrainGraphSegment) with a graphed forward and a graphed
+    backward, as torch.cuda.make_graphed_callables makes them over several
+    callables; the criterion (matcher, LAP, losses and their backward)
+    runs eagerly between the forward and the backward replays.  A replay
+    copies a segment's inputs into the graph's buffers, but for an input
+    that is an earlier graph's output (the same memory at every replay),
+    and so for the gradients arriving at its backward.  A segment's
+    backward graph computes the gradients of its inputs and of the trained
+    parameters it reads; those go into one buffer per parameter (copied in
+    by the first backward to reach the parameter, added by the later
+    ones), which stays the parameter's .grad after the step and which the
+    update's graph reads.  The step's generator is registered with every
+    forward graph (CUDAGraph.register_generator_state): a replay draws
+    what the eager step draws, at the same Philox offsets, and leaves the
+    generator where the eager step leaves it; a capture draws nothing.
+
+    A segment's graph replays inside its node's operator
+    (`TrainGraphSegment`, in the backward `TrainGraphSegmentBackward`),
+    inside the segment's span, so a profiler gives the forward's kernels
+    to the span's range and the backward's through the node's sequence
+    number.  A replayed training step's root holds the spans of the
+    segments (`backbone`, `encoder MSDA`, `decoder`, ...), not those
+    inside them, and counts no kernel launch but the criterion's."""
+
+    def __init__(self, model, kind, params=()):
+        self.model, self.kind, self.params = model, kind, params
+        self.train = kind == "train"
+        self.switches = None  # the modules that have `plain_ops`
         self.slots = None  # (the modules' tensor dicts, the names in them)
         self.entries = {}
-        self.pool = None
+        self.pool = self.stream = self.token = self.grads = None
+
+    def key(self, inputs, gen=None):
+        """The key of a call on the model inputs `inputs` that draws from
+        `gen`."""
+        if self.switches is None:
+            self.switches = [m for m in self.model.modules() if hasattr(m, "plain_ops")]
+        return (tuple((x.shape, x.dtype) for x in inputs), inputs[0].device, _autocast_dtype(),
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                tuple(m.plain_ops for m in self.switches), gen)
 
     def state(self):
         """The addresses of the model's parameters and buffers, read
@@ -198,135 +259,36 @@ class EvalGraphs:
             self.slots = tuple(zip(*slots)) or ((), ())
         return tuple(map(torch.Tensor.data_ptr, map(dict.__getitem__, *self.slots)))
 
-    def __call__(self, images, calibs, img_sizes):
-        inputs = (images, calibs, img_sizes)
-        amp = torch.get_autocast_dtype("cuda") if torch.is_autocast_enabled("cuda") else None
-        key = (images.shape, images.dtype, calibs.shape, calibs.dtype, img_sizes.shape,
-               img_sizes.dtype, images.device, amp, torch.backends.cuda.matmul.allow_tf32,
-               torch.backends.cudnn.allow_tf32)
-        state = self.state()
-        entry = self.entries.get(key)
-        if entry is None or entry.state != state:
-            if entry is not None:  # a tensor moved: every graph reads stale addresses
-                self.entries.clear()
-            entry = self.entries[key] = _Entry(state)
-            with held_constants(entry.tables):
-                return self.body(*inputs)
-        if entry.graph is None:
-            self.capture(entry, inputs, amp)
-            count("eval_graph_capture")
-        else:
-            for buf, x in zip(entry.inputs, inputs):
-                buf.copy_(x)
-            if self.model.training:  # left in eval mode, as an eager call leaves it
-                self.model.eval()
-            count("eval_graph_replay")
-        entry.graph.replay()
-        return entry.out.clone()
-
-    def capture(self, entry, inputs, amp):
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        entry.inputs = tuple(x.clone(memory_format=torch.contiguous_format) for x in inputs)
-        graph = torch.cuda.CUDAGraph()
-        cast = (torch.autocast("cuda", dtype=amp, cache_enabled=False) if amp is not None
-                else contextlib.nullcontext())
-        # thread_local: the prefetcher's thread may copy to the card meanwhile
-        with held_constants(entry.tables), torch.cuda.graph(
-                graph, pool=self.pool, capture_error_mode="thread_local"), cast:
-            entry.out = self.body(*entry.inputs)
-        entry.graph = graph
-
-
-class TrainGraphs:
-    """The training step's CUDA graphs by key (make_train_step's policy on a
-    CUDA card).
-
-    The key is the model inputs' shapes and dtypes and their device,
-    autocast's state and dtype on CUDA, the matmul and cuDNN TF32 switches
-    and every module's `plain_ops` (the kernels or their plain versions);
-    a key's graphs draw from one generator, and a call with another (or
-    with none) is the key's first call again.  A key's first call runs
-    eagerly: it fills the constant tables and picks the cuDNN and cuBLAS
-    algorithms, and is the only warm-up.  Its second call captures, in the
-    order in which they run, each forward segment's graph
-    (utils/segments.py: the model's forward is cut at its spans), each
-    segment's backward graph as the autograd engine calls it, and the
-    optimizer's update, replaying each as it is captured; later calls
-    replay them in that order (another order raises).  A
-    parameter or buffer moved or replaced (its address changed) makes the
-    next call of every key eager again, and the one after it capture anew
-    (EvalGraphs.state's rule).
-
-    Each segment is one autograd node (TrainGraphSegment), with a graphed
-    forward and a graphed backward, as torch.cuda.make_graphed_callables
-    makes them over several callables.  A replay copies a segment's inputs
-    into the graph's buffers, but for an input that is an earlier graph's
-    output (the same memory at every replay), and so for the gradients
-    arriving at its backward.  A segment's backward graph computes the
-    gradients of its inputs and of the trained parameters it reads; those
-    go into one buffer per parameter (copied in by the first backward to
-    reach the parameter, added by the later ones), which stays the
-    parameter's .grad after the step and which the update's graph reads.
-    The criterion (matcher, LAP, losses and their backward) runs eagerly
-    between the forward and the backward replays.
-
-    The step's generator is registered with every forward graph
-    (CUDAGraph.register_generator_state): a replay draws what the eager
-    step draws, at the same Philox offsets, and leaves the generator where
-    the eager step leaves it; a capture draws nothing.  The captures run
-    under a nested autocast with its weight cache off, so the casts of the
-    f32 parameters are graph nodes.  All graphs of one step object share
-    one memory pool; each key keeps the constant tables of its capture.
-
-    A graph replays inside its node's operator (`TrainGraphSegment`, in
-    the backward `TrainGraphSegmentBackward`), inside the segment's span,
-    so a profiler gives the forward's kernels to the span's range and the
-    backward's through the node's sequence number.  A replay runs no
-    Python of the model: a replayed step's root holds the spans of the
-    segments (`backbone`, `encoder MSDA`, `decoder`, ...), not those inside
-    them, and counts no kernel launch but the criterion's."""
-
-    def __init__(self, model, optimizer):
-        self.model, self.params = model, optimizer.params
-        self.switches = [m for m in model.modules() if hasattr(m, "plain_ops")]
-        self.slots = None
-        self.entries = {}
-        self.pool = self.stream = self.token = self.grads = None
-
-    state = EvalGraphs.state
-
-    def begin(self, batch, gen):
+    def begin(self, inputs, gen=None):
         """The call's entry, open for the step (`with`): eager, capture or
         replay."""
-        images, calibs, sizes = batch["images"], batch["calibs"], batch["img_sizes"]
-        amp = torch.get_autocast_dtype("cuda") if torch.is_autocast_enabled("cuda") else None
-        key = (images.shape, images.dtype, calibs.shape, calibs.dtype, sizes.shape, sizes.dtype,
-               images.device, amp, torch.backends.cuda.matmul.allow_tf32,
-               torch.backends.cudnn.allow_tf32, tuple(m.plain_ops for m in self.switches))
+        key = self.key(inputs, gen)
         state = self.state()
         entry = self.entries.get(key)
         if entry is not None and entry.state != state:
-            # a tensor moved: every graph reads stale addresses
+            # a tensor moved: every graph reads stale addresses.  The next
+            # capture takes a new pool: the old one keeps blocks that
+            # outlive its graphs (the capture stream's cuBLAS workspaces),
+            # and a pool whose graphs are all gone takes no other capture
+            # while it holds a block
             self.entries.clear()
-            self.grads = entry = None
-        if entry is None or entry.gen is not gen:
-            entry = self.entries[key] = _TrainEntry(self, key, state, gen)
+            self.grads = self.pool = entry = None
+        if entry is None:
+            entry = self.entries[key] = _KeyGraphs(self, key, state, gen)
             return entry
         entry.at = entry.cursor = 0
         if entry.mode == "eager":
             entry.mode = "capture"
             # the eager calls' cached blocks, which no capture can release
             torch.cuda.empty_cache()
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+                self.token = torch.zeros((), device=inputs[0].device, requires_grad=True)
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-                self.stream = torch.cuda.Stream()
-                self.token = torch.zeros((), device=images.device, requires_grad=True)
             if self.grads is None:
                 self.grads = [torch.zeros_like(p) for p in self.params]
-            count("train_graph_capture")
-        else:
-            count("train_graph_replay")
+        count(f"{self.kind}_graph_{entry.mode}")
         return entry
 
     def hand_over_grads(self):
@@ -350,12 +312,12 @@ class TrainGraphs:
         here.wait_stream(self.stream)
 
 
-class _TrainEntry:
+class _KeyGraphs:
     """One key's graphs: the model's tensor addresses at its last eager
     call, the constant tables, the segments in the order of the step's
     calls, every graph in the order of its capture, and the storages of
-    the graphs' outputs.  Open (`with`) for one step; the routed runner of
-    its segments (utils/segments.py)."""
+    the graphs' outputs.  Open (`with`) for one call; the runner of its
+    segments (the training step's routed to it, utils/segments.py)."""
 
     def __init__(self, graphs, key, state, gen):
         self.graphs, self.key, self.state, self.gen = graphs, key, state, gen
@@ -373,7 +335,7 @@ class _TrainEntry:
     def __enter__(self):
         self.stack = contextlib.ExitStack()
         self.stack.enter_context(held_constants(self.tables))
-        if not self.eager:
+        if self.graphs.train and not self.eager:
             self.stack.enter_context(routed(self))
         return self
 
@@ -385,7 +347,7 @@ class _TrainEntry:
         elif self.mode == "capture":
             self.mode = "replay"
         elif self.mode == "replay" and self.cursor != len(self.order):
-            raise RuntimeError(f"the training step replayed {self.cursor} of its "
+            raise RuntimeError(f"the {self.graphs.kind} step replayed {self.cursor} of its "
                                f"{len(self.order)} CUDA graphs")
         return False
 
@@ -397,11 +359,14 @@ class _TrainEntry:
         if self.mode == "capture":
             self.order.append(graph)
         elif self.cursor >= len(self.order) or self.order[self.cursor] is not graph:
-            raise RuntimeError("the training step's CUDA graphs replay out of their order")
+            raise RuntimeError(f"the {self.graphs.kind} step's CUDA graphs replay out of their "
+                               "order")
         self.cursor += 1
         graph.replay()
 
     def __call__(self, name, fn, args):
+        """fn(*args) as the call's next segment, captured or replayed: the
+        training step's as an autograd node, the eval step's without."""
         flat, spec = tree_flatten(args)
         if self.mode == "capture":
             seg = _Segment(self, name, fn, flat, spec)
@@ -410,11 +375,14 @@ class _TrainEntry:
             seg = self.segments[self.at] if self.at < len(self.segments) else None
             if seg is None or seg.name != name:
                 raise RuntimeError(f"segment {name!r} was not captured at this point of the "
-                                   "training step")
+                                   f"{self.graphs.kind} step")
             self.at += 1
         tensors = [x for x in flat if isinstance(x, torch.Tensor)]
         with span(name) if name is not None else contextlib.nullcontext():
-            outs = TrainGraphSegment.apply(seg, self.graphs.token, *tensors)
+            if self.graphs.train:
+                outs = TrainGraphSegment.apply(seg, self.graphs.token, *tensors)
+            else:
+                outs = seg.forward(tensors)
         leaves = list(seg.out_leaves)
         for i, t in zip(seg.out_slots, outs):
             leaves[i] = t
@@ -422,7 +390,7 @@ class _TrainEntry:
 
 
 class _Segment:
-    """One segment's graphs (TrainGraphs): its static inputs (each an
+    """One segment's graphs (StepGraphs): its static inputs (each an
     earlier graph's output, or a buffer of its own that a replay copies
     into), its forward graph and static outputs, and its backward graph
     with the static gradients of its outputs (each arriving from another
@@ -453,13 +421,11 @@ class _Segment:
         it = iter(self.static_in)
         args = tree_unflatten([next(it) if isinstance(v, torch.Tensor) else v
                                for v in self.in_leaves], self.in_spec)
-        amp = torch.get_autocast_dtype("cuda") if torch.is_autocast_enabled("cuda") else None
-        cast = (torch.autocast("cuda", dtype=amp, cache_enabled=False) if amp is not None
-                else contextlib.nullcontext())
         graph = torch.cuda.CUDAGraph()
         if entry.gen is not None:
             graph.register_generator_state(entry.gen)
-        with graphs.capturing(graph), torch.enable_grad(), routed(None), cast:
+        with graphs.capturing(graph), torch.set_grad_enabled(graphs.train), routed(None), \
+                _uncached_autocast():
             out = self.fn(*args)
         self.fn = self.in_leaves = None
         self.out_leaves, self.out_spec = tree_flatten(out)

@@ -1,5 +1,5 @@
 """Segments: the stretches of work that a training step may replay as CUDA
-graphs (train/train_step.py:TrainGraphs).
+graphs (train/train_step.py:StepGraphs).
 
     feats = segment("backbone", self.backbone[0], x)
 

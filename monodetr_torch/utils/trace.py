@@ -19,9 +19,11 @@ roots of the process (more than 51 s of roots at one a millisecond): its
 name, start and end, its self time, the inclusive time of each named
 descendant (summed over the spans of that name), and the port kernels
 counted while it was open, on any thread (the backward's kernels launch
-on the autograd engine's thread).  A replay of the eval step's CUDA graph
-runs none of the model's Python: its `eval step` root holds no inner span
-and no kernel counts, only `eval_graph_replay` (train_step.py).
+on the autograd engine's thread).  A replay of a step's CUDA graphs
+runs none of the model's Python: an `eval step` root then holds no inner
+span and no kernel counts, only `eval_graph_replay`, and a `train step`
+root no span inside a segment and no kernel counts but the criterion's
+(train/train_step.py:StepGraphs).
 `roots()` reads the ring; `counts()` reads the process's totals.
 
 While a torch.profiler records, a span also opens a profiler range named
@@ -108,10 +110,11 @@ class span:
 
 def count(name, n=1):
     """Adds n to the counter `name`: a port kernel's launches (the name is
-    the kernel's, as chip_smoke.py:KERNELS has it), and the eval step's
-    CUDA graph captures and replays (`eval_graph_capture`,
-    `eval_graph_replay`, train/train_step.py:make_eval_step).  A kernel
-    launched by a graph's replay is not counted: only its capture is."""
+    the kernel's, as chip_smoke.py:KERNELS has it), and the steps' CUDA
+    graph captures and replays (`eval_graph_capture`, `eval_graph_replay`,
+    `train_graph_capture`, `train_graph_replay`,
+    train/train_step.py:StepGraphs).  A kernel launched by a graph's
+    replay is not counted: only its capture is."""
     with _totals_lock:
         _totals[name] = _totals.get(name, 0) + n
 

@@ -30,7 +30,9 @@ weights loaded in place, a cleared table cache and moved parameters.  The
 training step's CUDA graphs replay the eager step: bit for bit at lr 0 on
 every query variant, with the generator's state equal after every step,
 and within stated bounds after updates; a moved parameter makes the step
-eager once and capture again; replays make no synchronizing call.
+eager once and capture again; replays make no synchronizing call.  Both
+steps' graphs follow `plain_ops`: switched after a replay, the next call
+runs the plain versions eagerly and the one after captures them.
 """
 
 import contextlib
@@ -1542,3 +1544,61 @@ def test_train_step_replays_make_no_synchronizing_call(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert [r.counts.get("train_graph_replay") for r in trace.last("train step", 3)] == [1] * 3
     assert torch.isfinite(torch.stack(out)).all()
+
+
+@pytest.mark.parametrize("kind", ["eval", "train"])
+def test_plain_ops_switched_after_a_replay_run_the_plain_path(cuda, kind):
+    """Both steps' graphs are keyed on every module's `plain_ops`
+    (train/train_step.py:StepGraphs): after a key has run eagerly,
+    captured and replayed through the kernels, model.use_plain_ops(True)
+    makes the next call eager, through the plain versions (its root counts
+    no launch of a model kernel), the one after it capture the plain path
+    and the next replay it; back on the kernels, the kernels' graph
+    replays.  Every call equals a fresh step's eager call on a copy of the
+    model with the same `plain_ops`, bit for bit: the eval step (1 + 1
+    layers, bf16 autocast) its detections, the training step (bf16, 2 + 2
+    layers, dropout 0.1) at lr 0 its losses, with the generator's state
+    equal after every call.  The criterion's LAP is the one kernel a
+    training step launches on the plain path."""
+    import copy
+
+    from monodetr_torch.train.train_step import make_eval_step
+
+    if kind == "eval":
+        _, model = _small_model(cuda)
+        frames = _frames(cuda, 1, 4)
+        twin = copy.deepcopy(model)
+        step = make_eval_step(model)
+
+        def call(i):
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                want = make_eval_step(twin)(*frames[i % 4])
+                got = step(*frames[i % 4])
+            return got, want, trace.last("eval step", 1)[0]
+    else:
+        _, model, crit, batches = _train_setup(cuda)
+        twin = copy.deepcopy(model)
+        step, _ = _fresh_step(model, crit)
+        gen = torch.Generator(device=cuda).manual_seed(13)
+        gen_e = torch.Generator(device=cuda)
+
+        def call(i):
+            gen_e.set_state(gen.get_state())
+            want = _train_call(_fresh_step(twin, crit)[0], batches[i % 4], 0.0, gen_e)[0]
+            got, _, root = _train_call(step, batches[i % 4], 0.0, gen)
+            assert torch.equal(gen.get_state(), gen_e.get_state()), i
+            return got, want, root
+
+    kinds, launched = [], []
+    for i, plain in enumerate([False] * 3 + [True] * 3 + [False]):
+        for m in (model, twin):
+            m.use_plain_ops(plain)
+        got, want, root = call(i)
+        assert torch.equal(got, want), (i, plain)
+        kinds.append("replay" if root.counts.get(f"{kind}_graph_replay") else
+                     "capture" if root.counts.get(f"{kind}_graph_capture") else "eager")
+        launched.append({k for k, v in root.counts.items() if v and "_graph_" not in k})
+    assert kinds == ["eager", "capture", "replay"] * 2 + ["replay"]
+    criterion = {"lap"} if kind == "train" else set()
+    assert {"msda_enc_fused", "msda_sep"} | criterion <= launched[0] == launched[1]
+    assert launched[2:] == [criterion] * 5
