@@ -1,7 +1,7 @@
 """Smoke run of monodetr_torch on one CUDA card.
 
     python3 chip_smoke.py [--decoder-msda-only | --lap-only | --learning-loop-only |
-                           --bench-only]
+                           --bench-only | --backbone-only]
 
 Phases, one line each (or a few), and any failure exits non-zero:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -23,7 +23,11 @@ Phases, one line each (or a few), and any failure exits non-zero:
      backward), kernels 2 and 7 at
      32 samples per head and with all 550 queries' samples inside one 16 x
      16 px patch (a line each with that time beside the uniform one), the
-     dropout's properties, and the LAP kernel bit-identical to its plain
+     dropout's properties, the backbone's three epilogue kernels
+     (ops/backbone.py) bit-identical to their plain versions at r101x2's
+     layer3 and r50's layer1 shapes (batch 16, bf16), each timed beside its
+     bytes bound at 3.35 TB/s and the PyTorch passes it replaces
+     (phase_backbone_epilogues), and the LAP kernel bit-identical to its plain
      version on 528 matching problems and on its edge cases
      (lap_edge_cases), with its cycles per Dijkstra iteration (one launch
      of the longest problem less one of a problem the greedy start
@@ -156,7 +160,8 @@ do for kernels 2 and 7, with --encoder-msda-only the same for kernels 1,
 5 and 6 and kernel 1's backward with every offset beyond the window
 (phase_enc_clustered), with --lap-only phases 1 and 2 and the LAP
 part of phase 4, with --learning-loop-only phases 1, 2 and 11-15, and
-with --bench-only phases 1, 2 and 16; none prints the report or the last
+with --bench-only phases 1, 2 and 16, with --backbone-only phases 1 and 2
+and the backbone's epilogues; none prints the report or the last
 line.  Each is a
 minute or less for those kernels' times, e.g. of two checkouts one after
 the other on one card (the wrappers they call are `ms_deform_attn_sep`,
@@ -353,6 +358,36 @@ def read_launches():
     """{kernel: launches since the last reset_launches()}."""
     now = trace.counts()
     return {name: now.get(name, 0) - LAUNCHES_AT_RESET.get(name, 0) for name in KERNELS}
+
+
+# the backbone's epilogue kernels (ops/backbone.py) count their launches
+# under one counter, checked by the eval and train slices beside KERNELS'
+BACKBONE = "backbone_epilogue"
+
+
+def backbone_launches(cfg, train):
+    """BACKBONE launches of one forward of cfg's backbone, and with `train`
+    of its backward: (a) at the stem, (a) twice and (b) once a block; in
+    the backward (d) once a trained block (layers 2-4) but layer2's first,
+    whose input is detached; with remat each trained block's forward
+    again, recomputed under checkpoint."""
+    from monodetr_torch.models.backbone import STAGE_BLOCKS
+
+    blocks = STAGE_BLOCKS[cfg["backbone"]]
+    trained = sum(blocks[1:])
+    n = 1 + 3 * sum(blocks)
+    if train:
+        n += trained - 1 + (3 * trained if cfg.get("remat") else 0)
+    return n
+
+
+def backbone_counts(want, label):
+    """BACKBONE's launches since the last reset_launches(): fail unless
+    they are `want`."""
+    got = trace.counts().get(BACKBONE, 0) - LAUNCHES_AT_RESET.get(BACKBONE, 0)
+    if got != want:
+        raise RuntimeError(f"{label}: {BACKBONE} launches {got}, want {want}")
+    return {BACKBONE: got}
 
 
 def phase_environment():
@@ -947,6 +982,72 @@ def phase_dropout():
         raise RuntimeError("dropout: a property does not hold")
 
 
+# the epilogue kernels' timing shapes (batch 16, bf16): r101x2's layer3 at
+# 768x2560 (48 x 160 at stride 16, inner width 256, blocks' outputs 1024)
+# and r50's layer1 at 384x1280 (96 x 320, 64, 256)
+BACKBONE_SHAPES = (("r101x2 layer3", 16, 256, 1024, (48, 160)),
+                   ("r50 layer1", 16, 64, 256, (96, 320)))
+
+
+def phase_backbone_epilogues():
+    """The backbone's epilogue kernels (ops/backbone.py) at the main path's
+    shapes: bit-identical to their plain versions, and each timed by CUDA
+    events beside its bytes bound (each input read and the output written
+    once, over 3.35 TB/s) and the PyTorch passes it replaces on the plain
+    path (the bias add and ReLU; the bias add, residual add and ReLU;
+    autograd's add and threshold_backward).  (a) runs at the blocks' inner
+    width, (b) and (d) at their output width.  Returns {shape: {kernel:
+    row}}."""
+    from monodetr_torch.ops import backbone as ob
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    report = {}
+    for label, B, width, out_c, (h, w) in BACKBONE_SHAPES:
+        def act(C):
+            return torch.randn(B, C, h, w, generator=gen, device="cuda").to(bf16).contiguous(
+                memory_format=torch.channels_last)
+
+        inner = act(width)
+        o3, idn, g_a, g_b, x_out = act(out_c), act(out_c), act(out_c), act(out_c), act(out_c)
+        b_in, b3 = (torch.randn(C, generator=gen, device="cuda") for C in (width, out_c))
+        v = (1, -1, 1, 1)
+        for got, want in ((ob.bias_relu_(inner.clone(), b_in), ob.bias_relu_plain(inner, b_in)),
+                          (ob.tail(o3, idn, b3), ob.tail_plain(o3, idn, b3)),
+                          (ob.accumulate_mask(g_a, g_b, x_out),
+                           ob.accumulate_mask_plain(g_a, g_b, x_out))):
+            if not torch.equal(got, want):
+                raise RuntimeError(f"backbone epilogues, {label}: a kernel differs from its "
+                                   "plain version")
+        work, work3 = inner.clone(), o3.clone()
+        out3 = torch.empty_like(o3)
+        bi, b3h = b_in.to(bf16).view(v), b3.to(bf16).view(v)
+        cases = {
+            "bias_relu_": (lambda: ob.bias_relu_(work, b_in), nbytes(inner) * 2,
+                           lambda: F.relu(work.add_(bi))),
+            "tail": (lambda: ob.tail(o3, idn, b3, out=out3), nbytes(o3) * 3,
+                     lambda: F.relu(work3.add_(b3h) + idn)),
+            "accumulate_mask": (lambda: ob.accumulate_mask(g_a, g_b, x_out, out=out3),
+                                nbytes(g_a) * 4,
+                                lambda: torch.ops.aten.threshold_backward(g_a + g_b, x_out, 0)),
+        }
+        rows = {}
+        for name, (kernel, moved, passes) in cases.items():
+            ms, bound_ms = cuda_ms(kernel), 1e3 * moved / HBM_BYTES_S
+            rows[name] = dict(ms=round(ms, 4), bound_ms=round(bound_ms, 4),
+                              bound_share=round(bound_ms / ms, 3),
+                              pytorch_passes_ms=round(cuda_ms(passes), 4))
+            C = out_c if name in ("tail", "accumulate_mask") else width
+            log(f"backbone epilogue {name}, {label} ({B}x{C}x{h}x{w} bf16): {ms:.4f} ms, bytes "
+                f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of 3.35 TB/s), PyTorch's "
+                f"passes {rows[name]['pytorch_passes_ms']:.4f} ms")
+        report[label] = rows
+        del inner, o3, idn, g_a, g_b, x_out, work, work3, out3
+        torch.cuda.empty_cache()
+    log(json.dumps({"backbone_epilogues": report}))
+    return report
+
+
 def sm_clock_hz():
     """The SM clock now, from a spin of a known number of cycles
     (torch.cuda._sleep counts clock64) timed by CUDA events."""
@@ -1195,14 +1296,16 @@ def phase_eval_slice(label="eval slice", overrides=None, n_batches=2,
     results = tester.inference()
     torch.cuda.synchronize()
     counts = main_path_counts(per_forward, n_batches, label)
+    counts.update(backbone_counts(n_batches * backbone_launches(cfg, False), label))
     rows = [r for preds in results.values() for r in preds]
     ok = (len(results) == n_batches * batch and len(rows) == n_batches * batch * 50
           and np.isfinite(np.asarray(rows, np.float64)).all()
           and all(len(r) == 14 for r in rows))
     txts = len(os.listdir(tester.results_dir))
     log(f"{label}: Tester.inference bf16 {n_batches} x {batch} images {size[0]}x{size[1]}: "
-        f"{tester.ms_per_img:.2f} ms/img, launches {counts} (want {per_forward} per "
-        f"forward), {len(rows)} KITTI rows in {txts} txts {'ok' if ok else 'FAIL'}")
+        f"{tester.ms_per_img:.2f} ms/img, launches {counts} (want {per_forward} and "
+        f"{backbone_launches(cfg, False)} {BACKBONE} per forward), {len(rows)} KITTI rows in "
+        f"{txts} txts {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"{label}: wrong decoded rows")
     batch0, _ = next(iter(SyntheticLoader(1, batch, 0, *size)))
@@ -1286,8 +1389,10 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
             losses.append(step(b, 2e-4, gen))
             events[i + 1].record()
         torch.cuda.synchronize()
-        counts = main_path_counts(train_launches(per_step, n_steps, graphed=not cfg.get("remat")),
-                                  1, label)
+        graphed = not cfg.get("remat")
+        counts = main_path_counts(train_launches(per_step, n_steps, graphed=graphed), 1, label)
+        counts.update(backbone_counts(train_launches(
+            {BACKBONE: backbone_launches(cfg, True)}, n_steps, graphed=graphed)[BACKBONE], label))
     finally:
         _build.dtype_code = dtype_code
     values = np.stack([lv.values.cpu().numpy() for lv in losses])
@@ -1300,8 +1405,9 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
     log(f"{label}: {n_steps} train steps, batch {batch}, {size[0]}x{size[1]}, bf16 compute, f32 "
         f"parameters and AdamW state, dropout 0.1: loss_detr "
         + " ".join(f"{t:.3f}" for t in totals)
-        + f"; launches {counts} (want {per_step} per step on the eager and capture steps, "
-        f"the LAP on every step); kernel dtypes "
+        + f"; launches {counts} (want {per_step} and {backbone_launches(cfg, True)} "
+        f"{BACKBONE} per step on the eager and capture steps, the LAP on every step); kernel "
+        f"dtypes "
         f"{sorted(str(d) for d in seen)} {'ok' if ok else 'FAIL'}")
     log(f"{label}: ms/step by CUDA events " + " ".join(f"{m:.1f}" for m in ms)
         + f"; steps {min(3, n_steps)}-{n_steps}: {steady:.1f} ms/step, "
@@ -2267,9 +2373,10 @@ def phase_learning_loop(add):
 
 def main(argv):
     if argv not in ([], ["--decoder-msda-only"], ["--encoder-msda-only"], ["--lap-only"],
-                    ["--learning-loop-only"], ["--bench-only"]):
+                    ["--learning-loop-only"], ["--bench-only"], ["--backbone-only"]):
         sys.exit("usage: python3 chip_smoke.py [--decoder-msda-only | --encoder-msda-only | "
-                 f"--lap-only | --learning-loop-only | --bench-only], not {argv}")
+                 f"--lap-only | --learning-loop-only | --bench-only | --backbone-only], "
+                 f"not {argv}")
     phase_environment()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2282,6 +2389,9 @@ def main(argv):
         return
     if argv == ["--bench-only"]:
         phase_bench()
+        return
+    if argv == ["--backbone-only"]:
+        phase_backbone_epilogues()
         return
     if argv == ["--encoder-msda-only"]:
         phase_forward_kernels([n for n in FORWARD_KERNELS if n in ENC_KERNELS])
@@ -2298,9 +2408,10 @@ def main(argv):
     phase_loc_extras()
     windowed_backward = phase_window_edges()
     phase_dropout()
+    backbone = phase_backbone_epilogues()
     report.update(phase_lap())
     phase_dtype_policy()
-    totals = dict.fromkeys(KERNELS, 0)
+    totals = dict.fromkeys([*KERNELS, BACKBONE], 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -2354,7 +2465,10 @@ def main(argv):
     log(json.dumps({"kernels": [
         dict(name=name, route=spec["route"], source=spec["source"],
              replaces=spec["replaces"], launches=totals[name], **report[name])
-        for name, spec in KERNELS.items()]}))
+        for name, spec in KERNELS.items()]
+        + [dict(name=BACKBONE, route="cuda", source="monodetr_torch/csrc/backbone.cu",
+                replaces="monodetr_tpu/models/backbone.py:157",
+                launches=totals[BACKBONE], kernels=backbone)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

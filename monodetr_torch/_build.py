@@ -44,6 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # entry point -> argument types (see csrc/*.cu)
 SIGNATURES = {
     "mdt_msda_enc_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P),
@@ -62,9 +63,11 @@ SIGNATURES = {
     "mdt_attention_keep_mask": (_P, _I, _I, _I, _P, _U, _P),
     "mdt_lap": (_P, _P, _P, _I, _I, _P),
     "mdt_lap_probe": (_P, _I, _P),
+    "mdt_backbone_bias_relu": (_P,) * 3 + (_I, _L, _I, _P),
+    "mdt_backbone_tail": (_P,) * 5 + (_I, _L, _I, _P),
+    "mdt_backbone_accumulate_mask": (_P,) * 4 + (_I, _L, _I, _P),
 }
 _D = ctypes.c_double
-_L = ctypes.c_longlong
 # host entry point -> argument types (see csrc/kitti_native.cpp); pointers
 # are typed, so numpy's `ctypes.data_as` pointers pass as they are
 HOST_SIGNATURES = {

@@ -25,12 +25,29 @@ trained Bottleneck runs under torch.utils.checkpoint, as nn.remat(Bottleneck)
 does (backbone.py:219): its activations are recomputed in the backward
 from the block's input.  layer1 keeps no activations either way (its
 output is detached).
+
+On a CUDA card with `plain_ops` off (`ResNetBody.fused`), the input is
+put in channels_last memory (where the main path has it already) and the
+passes between the convolutions are the epilogue kernels of
+ops/backbone.py: the bias and ReLU after each inner convolution in place,
+a block's bias, residual add and ReLU in one pass, the stem's pool before
+its bias and ReLU, and in the backward the residual gradient's add with
+the ReLU mask of the block before; the convolutions are the same cuDNN
+convolutions on the same folded weights, without bias.  The kernels take
+bf16 and f32 and raise on another dtype.  A trained stage is one
+autograd.Function (ops/backbone.py:_Stage), or one per block under
+checkpoint with `remat`.  On the CPU and with `plain_ops` the body runs
+the plain modules below, which the kernels are held to.
 """
+
+import functools
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..ops.backbone import bottleneck_stage, stem
 
 STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 BACKBONE_NUM_CHANNELS = (512, 1024, 2048)
@@ -53,10 +70,16 @@ class FrozenBatchNorm2d(nn.Module):
         return scale, self.bias.float() - self.running_mean.float() * scale
 
 
+def fold(conv, bn, dtype):
+    """The convolution's weight with bn's scale folded in, in `dtype`, and
+    bn's bias in f32."""
+    scale, bias = bn.affine()
+    return (conv.weight.float() * scale.view(-1, 1, 1, 1)).to(dtype), bias
+
+
 def conv_bn(conv, bn, x):
     """bn(conv(x)) as one convolution with the affine folded in."""
-    scale, bias = bn.affine()
-    w = (conv.weight.float() * scale.view(-1, 1, 1, 1)).to(x.dtype)
+    w, bias = fold(conv, bn, x.dtype)
     return F.conv2d(x, w, bias.to(x.dtype), conv.stride, conv.padding, conv.dilation)
 
 
@@ -83,6 +106,26 @@ class Bottleneck(nn.Module):
         identity = x if self.downsample is None else conv_bn(*self.downsample, x)
         return F.relu(out + identity)
 
+    def geometry(self):
+        """(conv2's stride, padding, dilation, the downsample's stride or
+        None), as ops/backbone.py:bottleneck_stage takes it."""
+        down = None if self.downsample is None else self.downsample[0].stride
+        return self.conv2.stride, self.conv2.padding, self.conv2.dilation, down
+
+    def folded(self, dtype):
+        """(w1, w2, w3, wd, b1, b2, b3, bd): the folded weights in `dtype`
+        and the f32 biases (wd and bd None without a downsample)."""
+        (w1, b1), (w2, b2), (w3, b3) = (fold(self.conv1, self.bn1, dtype),
+                                        fold(self.conv2, self.bn2, dtype),
+                                        fold(self.conv3, self.bn3, dtype))
+        wd, bd = (None, None) if self.downsample is None else fold(*self.downsample, dtype)
+        return w1, w2, w3, wd, b1, b2, b3, bd
+
+
+def fused_blocks(blocks, x):
+    return bottleneck_stage(x, [b.geometry() for b in blocks],
+                            [b.folded(x.dtype) for b in blocks])
+
 
 class ResNetBody(nn.Module):
     def __init__(self, name="resnet50", dilation=False, remat=False):
@@ -90,6 +133,7 @@ class ResNetBody(nn.Module):
         if name not in STAGE_BLOCKS:
             raise ValueError(f"backbone {name!r} is not one of {tuple(STAGE_BLOCKS)}")
         self.name, self.remat = name, remat
+        self.plain_ops = False
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         cin, width = 64, 64
@@ -107,20 +151,33 @@ class ResNetBody(nn.Module):
         for frozen in (self.conv1, self.layer1):
             frozen.requires_grad_(False)
 
-    def _stage(self, layer, x):
+    def fused(self, x):
+        """Whether a call on x runs the epilogue kernels: on a CUDA card
+        unless plain_ops."""
+        return x.device.type == "cuda" and not self.plain_ops
+
+    def _stage(self, layer, x, fused):
+        run = functools.partial(fused_blocks, list(layer)) if fused else layer
         if not (self.remat and torch.is_grad_enabled()):
-            return layer(x)
+            return run(x)
         for block in layer:
-            x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+            run = functools.partial(fused_blocks, [block]) if fused else block
+            x = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
         return x
 
     def forward(self, x):
-        x = F.relu(conv_bn(self.conv1, self.bn1, x))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        x = self.layer1(x).detach()
-        f8 = self._stage(self.layer2, x)
-        f16 = self._stage(self.layer3, f8)
-        return f8, f16, self._stage(self.layer4, f16)
+        fused = self.fused(x)
+        if fused:
+            x = x.contiguous(memory_format=torch.channels_last)
+            x = stem(x, *fold(self.conv1, self.bn1, x.dtype))
+            x = fused_blocks(self.layer1, x).detach()
+        else:
+            x = F.relu(conv_bn(self.conv1, self.bn1, x))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            x = self.layer1(x).detach()
+        f8 = self._stage(self.layer2, x, fused)
+        f16 = self._stage(self.layer3, f8, fused)
+        return f8, f16, self._stage(self.layer4, f16, fused)
 
 
 class ResNetBackbone(nn.Module):

@@ -102,9 +102,10 @@ class MonoDETR(nn.Module):
 
     def use_plain_ops(self, plain=True):
         """Route every kernel call of the model to its plain PyTorch
-        version (True) or back to the kernels (False)."""
+        version (True) or back to the kernels (False): every module that
+        has `plain_ops` (the backbone, deformable and plain attention)."""
         for m in self.modules():
-            if isinstance(m, (MSDeformAttn, MultiheadAttention)):
+            if hasattr(m, "plain_ops"):
                 m.plain_ops = plain
         return self
 

@@ -67,6 +67,7 @@ GROUPS = (
     ("attention_bwd", "port: attention bwd (kernel 3)"),
     ("attention_fwd", "port: attention fwd (kernel 3)"),
     ("lap_kernel", "port: LAP (kernel 4)"),
+    ("backbone_", "port: backbone epilogues"),
     ("multi_tensor_apply", "optimizer (foreach)"),
     ("conv", "convolutions (cuDNN)"),
     ("xmma", "convolutions (cuDNN)"),

@@ -33,6 +33,14 @@ and within stated bounds after updates; a moved parameter makes the step
 eager once and capture again; replays make no synchronizing call.  Both
 steps' graphs follow `plain_ops`: switched after a replay, the next call
 runs the plain versions eagerly and the one after captures them.
+The backbone's epilogue kernels equal their plain versions bit for bit,
+in place too; a stage through them (one autograd.Function) holds to
+autograd over the plain Bottlenecks to the bounds above (in bf16 its
+gradients to autograd over the passes' plain versions, which round as the
+kernels do), dilated and at batches 1 and 3;
+the stem's pool-first order equals ReLU first bit for bit; the body on
+the card takes the kernels unless `plain_ops`, whatever its input's
+layout, and refuses a dtype they do not take.
 """
 
 import contextlib
@@ -1076,13 +1084,208 @@ def test_loc_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert before == [launches(f) for pair in LOC_KERNELS.values() for f in pair]
 
 
+# the backbone's epilogue kernels (ops/backbone.py)
+BACKBONE_C = [64, 256, 1024, 2048]
+BACKBONE_SIZES = [(1, (7, 13)), (3, (12, 41))]
+# a ResNet-50 training forward and backward through the epilogues: the
+# forward 1 (stem) + 3 a block x 16; the backward one add a trained block
+# but layer2's first, whose input is detached (4 + 6 + 3 - 1), and with
+# remat each trained block's recomputed forward 3 besides
+EPILOGUE_STEP_LAUNCHES = {False: 49 + 12, True: 49 + 13 * 3 + 12}
+
+
+def _epilogue_launches():
+    return trace.counts().get("backbone_epilogue", 0)
+
+
+def _nhwc(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _same(got, want):
+    """Bit for bit, a NaN where the other has one."""
+    return torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+        torch.nan_to_num(got, 7.0), torch.nan_to_num(want, 7.0))
+
+
+def _body(cuda, name="resnet50", dilation=False, remat=False, seed=0):
+    """A body on the card whose FrozenBN affines are not the identity."""
+    from monodetr_torch.models.backbone import ResNetBody
+
+    body = ResNetBody(name, dilation, remat)
+    gen = torch.Generator().manual_seed(seed)
+    for m in body.modules():
+        if hasattr(m, "running_var"):
+            n = m.weight.numel()
+            m.weight.copy_(torch.rand(n, generator=gen) * 0.5 + 0.25)
+            m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+            m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+            m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+    return body.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", BACKBONE_C)
+@pytest.mark.parametrize("B,hw", BACKBONE_SIZES)
+def test_backbone_epilogue_kernels(cuda, dtype, C, B, hw):
+    """Each epilogue kernel against its plain version, bit for bit (both
+    round once from f32), into a new tensor and in place, NaNs included,
+    one launch each; the bias and ReLU also against PyTorch's bf16
+    sequence (a rounding after the add and one after the ReLU's input)
+    within one bf16 step."""
+    from monodetr_torch.ops import backbone as ob
+
+    gen = torch.Generator(device=cuda).manual_seed(C + B)
+    x, y, z, w = (_nhwc(torch.randn(B, C, *hw, generator=gen, device=cuda)).to(dtype)
+                  for _ in range(4))
+    x[0, 5, 1, 2] = y[-1, 7, 3, 4] = float("nan")
+    b3, bd = (torch.randn(C, generator=gen, device=cuda) for _ in range(2))
+    cases = [
+        (lambda: ob.bias_relu_(x.clone(), b3), lambda: ob.bias_relu_plain(x, b3)),
+        (lambda: ob.tail(x, y, b3), lambda: ob.tail_plain(x, y, b3)),
+        (lambda: ob.tail(x, y, b3, bd), lambda: ob.tail_plain(x, y, b3, bd)),
+        (lambda: (lambda o: ob.tail(o, y, b3, bd, out=o))(x.clone()),
+         lambda: ob.tail_plain(x, y, b3, bd)),
+        (lambda: ob.accumulate_mask(z, w, y), lambda: ob.accumulate_mask_plain(z, w, y)),
+        (lambda: (lambda o: ob.accumulate_mask(o, w, y, out=o))(z.clone()),
+         lambda: ob.accumulate_mask_plain(z, w, y)),
+        (lambda: ob.accumulate_mask(z, w), lambda: ob.accumulate_mask_plain(z, w)),
+    ]
+    for i, (kernel, plain) in enumerate(cases):
+        before = _epilogue_launches()
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert _epilogue_launches() == before + 1, i
+        assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last), i
+        assert _same(got, want), i
+    torch_seq = torch.relu(x + b3.to(dtype).view(1, -1, 1, 1))
+    assert max_err(torch.nan_to_num(ob.bias_relu_(x.clone(), b3)),
+                   torch.nan_to_num(torch_seq)) <= (0 if dtype == torch.float32 else
+                                                    2 ** -7 * torch_seq.nan_to_num().abs().max())
+
+
+def test_backbone_epilogue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from monodetr_torch.ops import backbone as ob
+
+    x = _nhwc(torch.randn(2, 16, 5, 5, device=cuda))
+    b = torch.zeros(16, device=cuda)
+    for call in (lambda: ob.bias_relu_(_nhwc(torch.randn(2, 12, 5, 5, device=cuda)),
+                                       torch.zeros(12, device=cuda)),
+                 lambda: ob.accumulate_mask(x.contiguous(), x),
+                 lambda: ob.accumulate_mask(x, x.bfloat16()),
+                 lambda: ob.bias_relu_(x.half(), b),
+                 lambda: ob.tail(x, x, b.double()),
+                 lambda: ob.tail(x, x, b, b.cpu()),
+                 lambda: ob.accumulate_mask(x, x[:1])):
+        with pytest.raises((ValueError, TypeError)):
+            call()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,dilation,layer", [("resnet50", False, "layer2"),
+                                                 ("resnet50", True, "layer4"),
+                                                 ("resnet101", False, "layer3")])
+@pytest.mark.parametrize("B,hw", [(1, (9, 13)), (3, (6, 5))])
+def test_backbone_stage_against_the_bottlenecks(cuda, dtype, name, dilation, layer, B, hw):
+    """A trained stage through the kernels (ops/backbone.py:_Stage, one
+    autograd.Function), its input and weights requiring gradients, against
+    autograd over the plain Bottlenecks: the output within 2e-4 in f32 and
+    3e-2 in bf16, and in f32 the input and weight gradients within 1e-4
+    (|a - b| / (1 + max|b|)).  In bf16 the output and the gradients also
+    against autograd over tests/test_torch_backbone.py:block_plain, which
+    rounds as the kernels do, within 3e-2 (the plain Bottlenecks round two
+    or three times where the kernels round once, and a value one bf16 step
+    from zero may then fall on the other side of its ReLU).  The forward
+    launches 3 a block, the backward one add a block."""
+    from monodetr_torch.models.backbone import fused_blocks
+    from test_torch_backbone import block_plain
+
+    blocks = getattr(_body(cuda, name, dilation), layer)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    x = _nhwc(torch.relu(torch.randn(B, blocks[0].conv1.in_channels, *hw, generator=gen,
+                                     device=cuda))).to(dtype)
+    with torch.no_grad():
+        gy = torch.randn(blocks(x).shape, generator=gen, device=cuda).to(dtype)
+
+    def twin(xi):
+        for b in blocks:
+            xi = block_plain(xi, b.geometry(), *b.folded(xi.dtype))
+        return xi
+
+    def run(path):
+        blocks.zero_grad(set_to_none=True)
+        xi = x.detach().clone().requires_grad_()
+        before = _epilogue_launches()
+        y = path(xi)
+        mid = _epilogue_launches()
+        y.backward(gy)
+        torch.cuda.synchronize()
+        launched = (mid - before, _epilogue_launches() - mid)
+        assert launched == ((3 * len(blocks), len(blocks)) if path is fused else (0, 0))
+        return [y.detach(), xi.grad] + [p.grad for p in blocks.parameters()]
+
+    def fused(xi):
+        return fused_blocks(list(blocks), xi)
+
+    got, plain = run(fused), run(blocks)
+    assert got[0].dtype == got[1].dtype == dtype
+    assert max_err(got[0], plain[0]) <= TOL_OF[dtype] * (1 + plain[0].abs().max().item())
+    for a, b in zip(got[1:], plain[1:] if dtype == torch.float32 else run(twin)[1:]):
+        assert max_err(a, b) <= GRAD_TOL[dtype] * (1 + b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backbone_pool_first_stem_is_bit_equal(cuda, dtype):
+    """The stem's pool before its bias and ReLU (the kernel) equals the
+    ReLU first, bit for bit."""
+    from monodetr_torch.ops import backbone as ob
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    c = _nhwc(torch.randn(3, 64, 97, 161, generator=gen, device=cuda)).to(dtype)
+    b = torch.randn(64, generator=gen, device=cuda)
+    pool = torch.nn.functional.max_pool2d
+    first = pool(ob.bias_relu_(c.clone(), b), 3, stride=2, padding=1)
+    assert torch.equal(ob.bias_relu_(_nhwc(pool(c, 3, stride=2, padding=1)), b), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backbone_takes_the_kernels_where_it_may(cuda, dtype):
+    """The whole body's forward on the card: 49 launches (the stem, 3 a
+    block) for input in channels_last memory and in contiguous NCHW memory
+    alike (the body puts it in channels_last memory), the same features to
+    the dtype's bound; with plain_ops none, the plain modules, whose f32
+    features equal the kernels' to 2e-4.  A dtype the kernels do not take
+    raises."""
+    body = _body(cuda, dilation=True)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = _nhwc(torch.randn(2, 3, 96, 160, generator=gen, device=cuda)).to(dtype)
+    runs = {}
+    with torch.no_grad():
+        for case in ("fused", "nchw", "plain_ops"):
+            body.plain_ops = case == "plain_ops"
+            before = _epilogue_launches()
+            runs[case] = body(x.contiguous() if case == "nchw" else x)
+            torch.cuda.synchronize()
+            assert _epilogue_launches() - before == (0 if case == "plain_ops" else 49), case
+        body.plain_ops = False
+        with pytest.raises(TypeError):
+            body(x.half())
+    for a, b in zip(runs["nchw"], runs["fused"]):
+        assert a.dtype == dtype and max_err(a, b) <= TOL_OF[dtype] * (1 + b.abs().max().item())
+    if dtype == torch.float32:
+        for a, b in zip(runs["fused"], runs["plain_ops"]):
+            assert max_err(a, b) <= 2e-4 * (1 + b.abs().max().item())
+
+
 def test_remat_step_on_the_card_equals_the_step_without(cuda):
     """One f32 train step (2 + 2 layers, 128x256, B=2, dropout 0.1 from
     one CUDA generator) with remat True and without: the losses and the
     generator's final state equal, every gradient within 1e-5 of its
     largest entry (kernels 1 and 2 sum the value gradient by atomics, in
     another order from run to run; the same bound holds two runs without
-    remat to each other)."""
+    remat to each other).  The backbone runs its epilogue kernels in both:
+    its stages as one autograd.Function each without remat, one a block
+    under checkpoint with it (EPILOGUE_STEP_LAUNCHES)."""
     from monodetr_torch.models.criterion import SetCriterion
     from monodetr_torch.train.synthetic import make_targets
     from monodetr_torch.train.train_step import TARGET_KEYS
@@ -1104,9 +1307,11 @@ def test_remat_step_on_the_card_equals_the_step_without(cuda):
         model = models[remat]
         model.zero_grad(set_to_none=True)
         gen = torch.Generator(device=cuda).manual_seed(3)
+        before = _epilogue_launches()
         out = model(images, calibs, sizes, train=True, gen=gen)
         losses = crit(out, targets)
         crit.total(losses).backward()
+        assert _epilogue_launches() - before == EPILOGUE_STEP_LAUNCHES[remat]
         runs.append((torch.stack([losses[k].detach() for k in sorted(losses)]),
                      {n: p.grad.clone() for n, p in model.named_parameters()
                       if p.grad is not None}, gen.get_state()))
@@ -1559,7 +1764,8 @@ def test_plain_ops_switched_after_a_replay_run_the_plain_path(cuda, kind):
     layers, bf16 autocast) its detections, the training step (bf16, 2 + 2
     layers, dropout 0.1) at lr 0 its losses, with the generator's state
     equal after every call.  The criterion's LAP is the one kernel a
-    training step launches on the plain path."""
+    training step launches on the plain path; the backbone's epilogues
+    run on the kernels' path only."""
     import copy
 
     from monodetr_torch.train.train_step import make_eval_step
@@ -1600,5 +1806,6 @@ def test_plain_ops_switched_after_a_replay_run_the_plain_path(cuda, kind):
         launched.append({k for k, v in root.counts.items() if v and "_graph_" not in k})
     assert kinds == ["eager", "capture", "replay"] * 2 + ["replay"]
     criterion = {"lap"} if kind == "train" else set()
-    assert {"msda_enc_fused", "msda_sep"} | criterion <= launched[0] == launched[1]
+    assert {"msda_enc_fused", "msda_sep", "backbone_epilogue"} | criterion <= launched[0] \
+        == launched[1]
     assert launched[2:] == [criterion] * 5
