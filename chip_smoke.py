@@ -76,7 +76,9 @@ Phases, one line each (or a few), and any failure exits non-zero:
      shipped model, default impls, bf16, batch 16, 384x1280, one model
      built per variant: `use_dab` and `two_stage_dino` train 2 steps at
      group_num 11 (550 queries), `two_stage` at group_num 1 (its 50
-     proposals), each with its launch counters and ms/step; two_stage's
+     proposals), each with its launch counters, its proposal counters
+     (tokens scored and picks taken, counted on every step, replays
+     included: proposal_counts) and ms/step; two_stage's
      group_num 11 raises the criterion's ValueError; each runs one
      `Tester.inference` batch, then its f32 forward at B=2 through the
      kernels against the plain versions (two_stage's encoder outputs too),
@@ -388,6 +390,28 @@ def backbone_counts(want, label):
     if got != want:
         raise RuntimeError(f"{label}: {BACKBONE} launches {got}, want {want}")
     return {BACKBONE: got}
+
+
+# the proposal variants count the tokens their heads score and the picks
+# their top-k takes, on every training step, replays included
+# (models/transformer.py)
+PROPOSALS = ("proposal_tokens", "proposal_picks")
+
+
+def proposal_counts(cfg, n_steps, batch, size, label):
+    """PROPOSALS since the last reset_launches(), over n_steps training
+    steps: fail unless they are batch x S tokens and batch x K picks a
+    step under `two_stage` or `two_stage_dino` (S the four levels' tokens
+    at strides 8-64, K the proposals a training step takes), else 0."""
+    got = {k: trace.counts().get(k, 0) - LAUNCHES_AT_RESET.get(k, 0) for k in PROPOSALS}
+    tokens = sum(-(-size[0] // 2 ** s) * -(-size[1] // 2 ** s) for s in (3, 4, 5, 6))
+    picks = min(tokens, cfg["num_queries"] * (cfg.get("group_num", 11) if cfg["two_stage_dino"]
+                                              else 1))
+    steps = n_steps * batch * bool(cfg["two_stage"] or cfg["two_stage_dino"])
+    want = {"proposal_tokens": steps * tokens, "proposal_picks": steps * picks}
+    if got != want:
+        raise RuntimeError(f"{label}: proposal counters {got}, want {want}")
+    return got
 
 
 def phase_environment():
@@ -1393,6 +1417,7 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
         counts = main_path_counts(train_launches(per_step, n_steps, graphed=graphed), 1, label)
         counts.update(backbone_counts(train_launches(
             {BACKBONE: backbone_launches(cfg, True)}, n_steps, graphed=graphed)[BACKBONE], label))
+        proposals = proposal_counts(cfg, n_steps, batch, size, label)
     finally:
         _build.dtype_code = dtype_code
     values = np.stack([lv.values.cpu().numpy() for lv in losses])
@@ -1406,8 +1431,10 @@ def phase_train_slice(label="train slice", overrides=None, per_step=DEFAULT_PER_
         f"parameters and AdamW state, dropout 0.1: loss_detr "
         + " ".join(f"{t:.3f}" for t in totals)
         + f"; launches {counts} (want {per_step} and {backbone_launches(cfg, True)} "
-        f"{BACKBONE} per step on the eager and capture steps, the LAP on every step); kernel "
-        f"dtypes "
+        f"{BACKBONE} per step on the eager and capture steps, the LAP on every step)"
+        + (f"; proposals {proposals} (tokens scored and picks taken, every step)"
+           if any(proposals.values()) else "")
+        + "; kernel dtypes "
         f"{sorted(str(d) for d in seen)} {'ok' if ok else 'FAIL'}")
     log(f"{label}: ms/step by CUDA events " + " ".join(f"{m:.1f}" for m in ms)
         + f"; steps {min(3, n_steps)}-{n_steps}: {steady:.1f} ms/step, "

@@ -24,8 +24,12 @@ Masks are all-valid at fixed input shapes, so valid ratios are 1.
 
 The segments (utils/segments.py) of the forward here: the levels'
 flattening, per encoder layer its sampling (`encoder MSDA`) and the rest
-of the layer, the decoder's first queries (and the proposal branches),
-and the whole decoder (`decoder`).
+of the layer, the decoder's first queries (`queries`: under `two_stage`
+and `two_stage_dino` the proposal heads over every token, the top-k and
+the gather), and the whole decoder (`decoder`).  Under the proposal
+variants each forward counts the tokens scored (`proposal_tokens`, B x S)
+and the picks taken (`proposal_picks`, B x K) outside the segments, so a
+replayed training step counts them too.
 """
 
 import math
@@ -38,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.utils import device_constant, inverse_sigmoid
 from ..utils.segments import segment
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .layers import (MLP, LayerNorm, MultiheadAttention, checkpoint_with_gen, dropout, ffn,
                      forward_dtype)
 from .msda_module import MSDeformAttn
@@ -321,9 +325,12 @@ class DepthAwareTransformer(nn.Module):
                 memory = layer(memory, pos_flat, enc_ref, spatial_shapes, gen)
 
         tgt, query_pos, reference_points, enc_class, enc_coord, idx = segment(
-            None, lambda m, i: self._queries(m, queries(), spatial_shapes, dtype, bbox_heads,
-                                             class_heads, train, i),
+            "queries", lambda m, i: self._queries(m, queries(), spatial_shapes, dtype,
+                                                  bbox_heads, class_heads, train, i),
             memory, proposal_idx)
+        if idx is not None:
+            count("proposal_tokens", B * memory.shape[1])
+            count("proposal_picks", idx.numel())
         hs, refs_in, dims = segment(
             "decoder",
             lambda *a: self._decode(*a, spatial_shapes, dtype, bbox_heads, dim_heads, gen),

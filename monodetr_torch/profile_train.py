@@ -93,12 +93,13 @@ GROUPS = (
 
 # the spans of utils/trace.py in the step, outermost first: `forward` keeps
 # what no span of the model holds (input projections, position tables, the
-# query variants' proposals, the heads after the decoder), `train step` the
-# loss stacking and data parallel's all-reduce; a kernel outside every span
-# is "other" (the backward's work that no forward operator made, on the
-# autograd engine's thread)
+# heads after the decoder), `queries` the decoder's first queries (the query
+# variants' proposals and top-k), `train step` the loss stacking and data
+# parallel's all-reduce; a kernel outside every span is "other" (the
+# backward's work that no forward operator made, on the autograd engine's
+# thread)
 COMPONENTS = ("train step", "forward", "backbone", "depth predictor", "encoder",
-              "encoder MSDA", "decoder", "decoder self-attention", "decoder MSDA",
+              "encoder MSDA", "queries", "decoder", "decoder self-attention", "decoder MSDA",
               "decoder depth cross-attention", "matcher", "criterion", "backward",
               "optimizer")
 BACKWARD_FUNCTION = 1  # at::RecordScope of an autograd node's backward

@@ -113,8 +113,10 @@ def count(name, n=1):
     the kernel's, as chip_smoke.py:KERNELS has it), and the steps' CUDA
     graph captures and replays (`eval_graph_capture`, `eval_graph_replay`,
     `train_graph_capture`, `train_graph_replay`,
-    train/train_step.py:StepGraphs).  A kernel launched by a graph's
-    replay is not counted: only its capture is."""
+    train/train_step.py:StepGraphs), and the proposal variants' tokens
+    scored and picks taken (`proposal_tokens`, `proposal_picks`,
+    models/transformer.py).  A kernel launched by a graph's replay is not
+    counted: only its capture is."""
     with _totals_lock:
         _totals[name] = _totals.get(name, 0) + n
 
